@@ -11,6 +11,14 @@ Phases, each fatal on failure:
      its median time (CUDA events), the plain version's time, one PyTorch
      library call's time where one computes the same function, and the
      bound (the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s fp32);
+  3b. the serving path's kernels at every GEMM shape of a SmolLM-360M
+     decode step (8 rows) and 128-row prefill, in bf16 (the tied head's
+     weight read in place as the transposed embedding table):
+     abft_matmul_detect against its plain version (flags exact, clear on
+     exact checksums, exactly one chunk on a c5 shifted by 10 tau), its O
+     bitwise equal to abft_matmul's, abft_matmul on bf16 against its plain
+     version; times beside torch.matmul and the bound (bf16 peak 989
+     TFLOP/s; the fp32-FMA bound beside it);
   4. the slice: build_plan + forward_cnn on that ResNet-18 in per_layer
      and deferred mode with the kernels pinned (use_fused_kernel=True):
      zero clean flags, bitwise clean-path contracts, allclose to the
@@ -20,12 +28,28 @@ Phases, each fatal on failure:
      spans around the port's functions) and a torch.profiler trace;
   5. injected faults (conv5: one element; conv13: a burst over channels
      of one image at one payload position): detected, corrected, no
-     residual, logits back to the clean ones, in both modes.
+     residual, logits back to the clean ones, in both modes;
+  6. the serving slice: SmolLM-360M at full width in bf16 (random params
+     from a seed), a ProtectedSession of 8 slots and 256 positions in
+     deferred mode with the kernels pinned, serving 16 requests (prompts
+     of 16-128 tokens, 32 new tokens each): every request completes, zero
+     flags, 225 abft_matmul_detect launches and 1 host read per forward;
+     per_layer serves the first 8 requests' first 8 tokens bitwise alike;
+     a teacher-forced check against the unprotected forward (every
+     served token's reference logit within 0.1 of the reference's top);
+     median decode-step ms and TTFT p50 of the unprotected session and
+     the protected one with the kernels off and on, three rounds in
+     turns, and a torch.profiler trace of one decode step of each;
+  7. serving drills: +1e4 at one logit of slot 3 at every decode step
+     (the tied head) and +1e3 at one element of a stage's wq in every
+     prefill and repeat: detected, corrected, attributed to the right
+     requests, no residual, tokens equal to the clean run's.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
-profiles) to PATH. Without a CUDA card, or outside a checkout of the
-repository, it exits non-zero and prints no result.
+profiles, serving counters and timings) to PATH. Without a CUDA card, or
+outside a checkout of the repository, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -43,8 +67,22 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 SEED = 0
 BATCH, IMG = 8, 224
+# the serving slice: SmolLM-360M at full width, bf16
+SERVE_ARCH = "smollm-360m"
+SLOTS, MAX_LEN = 8, 256
+N_REQ, GEN, PROMPT_LENS = 16, 32, (16, 128)
+DELTA = 0.1                    # teacher-forced logit margin
+DEVICE = "cuda"
+# (label, K, M, W read transposed, launches per forward) of the distinct
+# GEMM shapes of one SmolLM-360M forward: 32 layers of wq/wo, wk/wv,
+# gate/up and down, then the tied head read in place
+SERVE_SITES = (("wq/wo", 960, 960, False, 64), ("wk/wv", 960, 320, False, 64),
+               ("gate/up", 960, 2560, False, 64),
+               ("down", 2560, 960, False, 32),
+               ("head", 960, 49152, True, 1))
 
 
 def log(*a):
@@ -122,8 +160,8 @@ def time_host(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
-def bound_ms(nbytes: float, flops: float):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
+def bound_ms(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -301,6 +339,209 @@ def check_abft_matmul(cfg, gen, report):
             "ms": fc["ms"], "plain_ms": fc["plain_ms"],
             "bound_ms": fc["bound_ms"], "bound_by": fc["bound_by"],
             "library_ms": fc["library_ms"]}
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the serving path's kernels at its own shapes (bf16)
+# --------------------------------------------------------------------------
+
+def exact_chunk_checksums(d, w, rb, cb):
+    """c5/c6/c7/absdot per (rb x cb) chunk of the fp32 product (the
+    offline-exact predictions a clean chunk must meet), and the chunks'
+    sums of squares."""
+    from repro_torch.kernels.ref import chunk_sums_ref
+    d32, w32 = d.float(), w.float()
+    c5, c6, c7, sq = chunk_sums_ref(d32 @ w32, rb, cb)
+    absdot = chunk_sums_ref(d32.abs() @ w32.abs(), rb, cb)[0]
+    return [c5, c6, c7, absdot], sq
+
+
+def within_bf16_ulp(a, b) -> bool:
+    """Every element of a within one bf16 ulp of b (two roundings of fp32
+    sums that differ by reassociation only)."""
+    a32, b32 = a.float(), b.float()
+    return bool(((a32 - b32).abs() <= b32.abs() * 2.0 ** -7 + 1e-6).all())
+
+
+def check_serving_kernels(gen, report):
+    """abft_matmul_detect against its plain version, and abft_matmul on
+    bf16 operands, at every GEMM shape of a decode step (8 rows) and a
+    128-row prefill of SmolLM-360M: flags exact, scores and O allclose, O
+    bitwise equal between the two kernels, exact checksums clear and a c5
+    shifted by 10 tau flagging exactly its chunk. Times per decode step
+    and per prefill sum the shapes by their launch counts."""
+    import torch
+    from repro_torch import fp32_ieee
+    from repro_torch.core.plan import calibrate_tau_factor
+    from repro_torch.core.protected import pick_chunk
+    from repro_torch.core.thresholds import tau_scalar_coeffs
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import abft_matmul_detect_ref, abft_matmul_ref
+    bf16 = torch.bfloat16
+    rows, err_det, err_mm = [], 0.0, 0.0
+    tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+               "flops": 0.0, "mm_ms": 0.0, "mm_plain_ms": 0.0,
+               "mm_bytes": 0.0, "mm_flops": 0.0}
+           for n in (SLOTS, 128)}
+    with torch.no_grad(), fp32_ieee():
+        for n in (SLOTS, 128):
+            for label, k, m, transposed, count in SERVE_SITES:
+                d = torch.randn((n, k), generator=gen, device="cuda").to(bf16)
+                store = (torch.randn((m, k) if transposed else (k, m),
+                                     generator=gen, device="cuda")
+                         * k ** -0.5).to(bf16)
+                view = (lambda t: t.T) if transposed else (lambda t: t)
+                w = view(store)
+                rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
+                bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
+                cs, sq = exact_chunk_checksums(d, w, rb, cb)
+                ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+                o, flag, score = AM.abft_matmul_detect(d, w, *cs, rb, cb, ta, tb)
+                o_r, flag_r, score_r = abft_matmul_detect_ref(d, w, *cs, rb, cb,
+                                                              ta, tb)
+                o_mm, parts = AM.abft_matmul(d, w, bm, bn)
+                o_mr, parts_r = abft_matmul_ref(d, w, bm, bn)
+                torch.cuda.synchronize()
+                what = f"{label} ({n}x{k})@({k}x{m})"
+                if not torch.equal(flag, flag_r) or int(flag.sum()):
+                    fail(f"abft_matmul_detect {what}: flags {flag.tolist()} vs "
+                         f"plain {flag_r.tolist()}")
+                # a score is |c - s| / tau; the kernel's s and the plain
+                # version's differ by fp32 reassociation over K products and
+                # rb*cb terms, whose random-walk size in units of tau (at
+                # least tau_a * sqrt(sumsq)) is eps32 (sqrt K + sqrt(rb cb))
+                # / tau_a
+                noise = 2.0 ** -24 * (k ** 0.5 + (rb * cb) ** 0.5) / ta
+                e_s = max_err(score, score_r)
+                if not torch.allclose(score, score_r, rtol=1e-3, atol=noise):
+                    fail(f"abft_matmul_detect {what}: clean scores differ by "
+                         f"{e_s:.3g} (limit {noise:.3g})")
+                if not within_bf16_ulp(o, o_r):
+                    fail(f"abft_matmul_detect {what}: O beyond one bf16 ulp of "
+                         f"the plain version (max |err| {max_err(o, o_r):.3g})")
+                if not torch.equal(o, o_mm):
+                    fail(f"{what}: abft_matmul_detect and abft_matmul round O "
+                         f"differently (max |diff| {max_err(o, o_mm):.3g})")
+                if not within_bf16_ulp(o_mm, o_mr):
+                    fail(f"abft_matmul bf16 {what}: O beyond one bf16 ulp")
+                e_p = 0.0
+                for g_, r_, nm in zip(parts[:3], parts_r[:3],
+                                      ("colsum", "rowsum", "sumsq")):
+                    if g_.shape != r_.shape or not torch.allclose(
+                            g_, r_, rtol=1e-5, atol=1e-3 * k ** 0.5):
+                        fail(f"abft_matmul bf16 {what} {nm}: max |err| "
+                             f"{max_err(g_, r_):.3g}")
+                    e_p = max(e_p, max_err(g_, r_))
+                # c5, c6 or c7 of the last chunk shifted by 10 of its taus:
+                # that chunk alone flags, with the plain version's score
+                # (about 10, so rtol 1e-3 holds the threshold and the
+                # division to the plain version's)
+                tau5 = ta * float(sq[-1, -1].sqrt()) + tb * float(cs[3][-1, -1])
+                e_t = 0.0
+                for q, wq in enumerate((1, max(rb - 1, 1), max(cb - 1, 1))):
+                    ct = [c.clone() for c in cs]
+                    ct[q][-1, -1] += 10.0 * tau5 * wq
+                    _, flag_t, score_t = AM.abft_matmul_detect(d, w, *ct, rb,
+                                                               cb, ta, tb)
+                    _, flag_tr, score_tr = abft_matmul_detect_ref(
+                        d, w, *ct, rb, cb, ta, tb)
+                    want = torch.zeros_like(flag_t)
+                    want[-1, -1] = 1
+                    e_t = max(e_t, max_err(score_t, score_tr))
+                    if not (torch.equal(flag_t, want)
+                            and torch.equal(flag_tr, want)
+                            and torch.allclose(score_t, score_tr, rtol=1e-3,
+                                               atol=noise)
+                            and 9.9 < float(score_tr[-1, -1]) < 10.1):
+                        fail(f"abft_matmul_detect {what}: c{q + 5} shifted by "
+                             f"10 tau flags {flag_t.tolist()} (plain "
+                             f"{flag_tr.tolist()}), score "
+                             f"{float(score_t[-1, -1]):.6g} vs plain "
+                             f"{float(score_tr[-1, -1]):.6g}")
+                err_det = max(err_det, e_s, e_t, max_err(o, o_r))
+                err_mm = max(err_mm, max_err(o_mm, o_mr), e_p)
+                args = copies([d, store] + cs)
+                ms = time_device(lambda a, b, *c: AM.abft_matmul_detect(
+                    a, view(b), *c, rb, cb, ta, tb), args)
+                plain_ms = time_device(lambda a, b, *c: abft_matmul_detect_ref(
+                    a, view(b), *c, rb, cb, ta, tb), args)
+                lib_ms = time_device(lambda a, b, *c: torch.matmul(a, view(b)),
+                                     args)
+                mm_ms = time_device(lambda a, b, *c: AM.abft_matmul(
+                    a, view(b), bm, bn), args)
+                mm_plain = time_device(lambda a, b, *c: abft_matmul_ref(
+                    a, view(b), bm, bn), args)
+                del args
+                nb, mb = n // rb, m // cb
+                nbytes = 2.0 * (n * k + k * m + n * m) + 4.0 * 6 * nb * mb
+                flops = 2.0 * n * k * m + 5.0 * n * m
+                b, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+                b32, _ = bound_ms(nbytes, flops, FP32_FLOPS_PER_S)
+                pm, pn = -(-n // bm), -(-m // bn)
+                mm_bytes = (2.0 * (n * k + k * m + n * m)
+                            + 4.0 * (pm * m + n * pn + pm * pn))
+                mm_flops = 2.0 * n * k * m + 4.0 * n * m
+                mm_b, mm_by = bound_ms(mm_bytes, mm_flops, BF16_FLOPS_PER_S)
+                rows.append({"site": label, "shape": [n, k, m], "chunks": [rb, cb],
+                             "w_transposed": transposed, "per_forward": count,
+                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                             "abft_matmul_ms": mm_ms,
+                             "abft_matmul_plain_ms": mm_plain,
+                             "abft_matmul_bound_ms": mm_b,
+                             "abft_matmul_bound_by": mm_by,
+                             "bound_ms": b, "bound_by": by,
+                             "bound_fp32_fma_ms": b32,
+                             "clean_score": float(score.max()),
+                             "max_abs_err": {"score": e_s,
+                                             "tampered_score": e_t,
+                                             "o": max_err(o, o_r)}})
+                log(f"  {what} chunks ({rb},{cb}) x{count}: detect ms {ms:.4f} "
+                    f"plain {plain_ms:.4f} torch.matmul {lib_ms:.4f} "
+                    f"bound {b:.4f} ({by}; fp32-FMA {b32:.4f}); abft_matmul "
+                    f"{mm_ms:.4f} plain {mm_plain:.4f} bound {mm_b:.4f} "
+                    f"({mm_by}); clean score {float(score.max()):.3g} (err "
+                    f"{e_s:.3g}, limit {noise:.3g}); shifted c5/c6/c7 score "
+                    f"err {e_t:.3g}")
+                t = tot[n]
+                t["ms"] += count * ms
+                t["plain_ms"] += count * plain_ms
+                t["library_ms"] += count * lib_ms
+                t["mm_ms"] += count * mm_ms
+                t["mm_plain_ms"] += count * mm_plain
+                t["bytes"] += count * nbytes
+                t["flops"] += count * flops
+                t["mm_bytes"] += count * mm_bytes
+                t["mm_flops"] += count * mm_flops
+    for n, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"],
+                                                BF16_FLOPS_PER_S)
+        t["bound_fp32_fma_ms"] = bound_ms(t["bytes"], t["flops"])[0]
+        t["mm_bound_ms"], t["mm_bound_by"] = bound_ms(
+            t["mm_bytes"], t["mm_flops"], BF16_FLOPS_PER_S)
+        log(f"  per {'decode step' if n == SLOTS else 'prefill of 128'} "
+            f"(225 launches): detect ms {t['ms']:.4f} plain {t['plain_ms']:.4f}"
+            f" torch.matmul {t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}; fp32-FMA {t['bound_fp32_fma_ms']:.4f}), "
+            f"{t['bytes'] / 1e6:.1f} MB; abft_matmul {t['mm_ms']:.4f} plain "
+            f"{t['mm_plain_ms']:.4f} bound {t['mm_bound_ms']:.4f} "
+            f"({t['mm_bound_by']})")
+    report["serving_kernels"] = {"per_shape": rows, "decode_step": tot[SLOTS],
+                                 "prefill_128": tot[128]}
+    dec = tot[SLOTS]
+    src = "src/repro_torch/kernels/csrc/abft_matmul.cu"
+    # both rows' times are per decode step (225 launches over its shapes)
+    detect = {"name": "abft_matmul_detect", "route": "cuda", "source": src,
+              "replaces": "src/repro/kernels/abft_matmul.py:131",
+              "max_abs_err": err_det, "ms": dec["ms"],
+              "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+              "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}
+    mm = {"name": "abft_matmul/serving_bf16", "route": "cuda", "source": src,
+          "replaces": "src/repro/kernels/abft_matmul.py:54",
+          "max_abs_err": err_mm, "ms": dec["mm_ms"],
+          "plain_ms": dec["mm_plain_ms"], "bound_ms": dec["mm_bound_ms"],
+          "bound_by": dec["mm_bound_by"], "library_ms": dec["library_ms"]}
+    return detect, mm
 
 
 # --------------------------------------------------------------------------
@@ -616,6 +857,242 @@ def run_slice(report):
     return res
 
 
+# --------------------------------------------------------------------------
+# phases 6 and 7: the serving slice
+# --------------------------------------------------------------------------
+
+def serve_prompts(cfg, n: int, seed: int):
+    rng = __import__("numpy").random.default_rng(seed)
+    lo, hi = PROMPT_LENS
+    return [rng.integers(0, cfg.vocab_size, int(k))
+            for k in rng.integers(lo, hi + 1, n)]
+
+
+def serve(params, cfg, plan, prompts, gen: int, correction="auto",
+          hook=None):
+    """One ProtectedSession over `prompts`: (session, request ids,
+    report, per-step records). The records are the session's decode log:
+    each decode step's host milliseconds (they end in the read of the
+    next tokens, which synchronizes) and its localizer hit vector;
+    `hook` is (path, fn) of a fault_scope."""
+    import contextlib
+    from repro_torch.core import injection
+    from repro_torch.serving import ProtectedSession
+    sess = ProtectedSession(params, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+                            correction=correction, device=DEVICE)
+    rids = [sess.submit(p, max_new_tokens=gen) for p in prompts]
+    scope = injection.fault_scope(*hook) if hook else contextlib.nullcontext()
+    with scope:
+        report = sess.run()
+    log_ = sess.stats.decode_log
+    steps = {"ms": [e["dispatch_s"] * 1e3 for e in log_],
+             "hits": [e["hit"] for e in log_]}
+    return sess, rids, report, steps
+
+
+def run_serving(report):
+    """Phase 6: full-width bf16 SmolLM-360M served in deferred mode
+    through the kernels, checked for zero flags, 225 detect launches and
+    one host read per forward, per_layer parity, a teacher-forced check
+    against the unprotected forward, timings of three sessions and a
+    profile. Phase 7: a decode fault at the tied head and a prefill fault
+    at a stage site, detected, corrected and attributed."""
+    import torch
+    from repro_torch import configs, core, fp32_ieee
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.models import transformer as M
+
+    cfg = configs.get(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = core.build_plan(params, cfg, batch=SLOTS, seq=MAX_LEN,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan.validate(params)
+    fused = core.force_fused_matmul(plan)
+    n_sites = cfg.stages()[1] * 7 + 1
+    if len(fused) != 8:
+        fail(f"plan has {len(fused)} entries, want 8")
+    log(f"  {SERVE_ARCH}: {M.count_params(cfg) / 1e6:.1f} M params bf16, "
+        f"{n_sites} protected GEMMs per forward; init {init_s:.1f} s, "
+        f"build_plan {plan_s:.1f} s")
+    res = {"init_s": init_s, "build_plan_s": plan_s}
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+
+    # -- the main path: deferred, kernels pinned -----------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    sess, rids, rep, steps = serve(params, cfg, fused, prompts, GEN)
+    c = rep["counters"]
+    forwards = c["prefills"] + c["decode_steps"]
+    launches = {"abft_matmul_detect": AM.DETECT_LAUNCHES,
+                "abft_matmul": AM.LAUNCHES}
+    reads = workflow.HOST_READS
+    tokens = {r: sess.tokens_for(r) for r in rids}
+    reasons = [r["finish_reason"] for r in rep["requests"]]
+    log(f"  deferred, kernels on: {rep['completed']} requests, {c['prefills']} "
+        f"prefills + {c['decode_steps']} decode steps, launches {launches}, "
+        f"host reads {reads}, faults {c['faults_detected']}")
+    if reasons != ["length"] * N_REQ or rep["completed"] != N_REQ:
+        fail(f"requests finished with {reasons}")
+    if c["faults_detected"] or c["dropped"] or c["faults_unattributed"]:
+        fail(f"clean serving counted {c}")
+    if any(any(h) for h in steps["hits"]):
+        fail("the slot localizer hit on a clean step")
+    if launches != {"abft_matmul_detect": n_sites * forwards,
+                    "abft_matmul": 0} or reads != forwards:
+        fail(f"{forwards} clean forwards launched {launches} with {reads} host "
+             f"reads; want {n_sites} detect launches and 1 read each")
+    res["deferred"] = {"counters": c, "launches": launches, "host_reads": reads,
+                       "forwards": forwards}
+
+    # -- per_layer serves the same tokens ------------------------------------
+    workflow.HOST_READS = 0
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = 0
+    s_pl, r_pl, rep_pl, _ = serve(params, cfg, fused, prompts[:8], 8,
+                                  correction="per_layer")
+    f_pl = rep_pl["counters"]["prefills"] + rep_pl["counters"]["decode_steps"]
+    got = [s_pl.tokens_for(r) for r in r_pl]
+    want = [tokens[r][:8] for r in rids[:8]]
+    log(f"  per_layer, first 8 requests x 8 tokens: host reads "
+        f"{workflow.HOST_READS} over {f_pl} forwards, abft_matmul launches "
+        f"{AM.LAUNCHES}; tokens == deferred: {got == want}")
+    if got != want:
+        fail(f"per_layer tokens {got} differ from deferred's {want}")
+    if workflow.HOST_READS != n_sites * f_pl or AM.LAUNCHES != n_sites * f_pl:
+        fail(f"per_layer: {workflow.HOST_READS} reads, {AM.LAUNCHES} launches")
+    res["per_layer"] = {"host_reads": workflow.HOST_READS, "forwards": f_pl,
+                        "launches": AM.LAUNCHES}
+
+    # -- teacher-forced check against the unprotected forward ----------------
+    ucfg = cfg.replace(abft=False)
+    gap, worst = 0.0, 0.0
+    with torch.no_grad(), fp32_ieee():
+        for r, p in zip(rids, prompts):
+            seq = torch.as_tensor(list(p) + tokens[r], device=DEVICE)[None]
+            ref, _, _ = M._forward(params, seq, ucfg)
+            with core.plan_scope(fused, mode="detect_only"):
+                kern, _, _ = M._forward(params, seq, cfg)
+            plen = len(p)
+            pos = torch.arange(plen - 1, seq.shape[1] - 1, device=DEVICE)
+            served = seq[0, plen:]
+            ref_p = ref[0, pos]
+            gap = max(gap, max_err(kern[0, pos], ref_p))
+            margin = ref_p.max(dim=-1).values - ref_p.gather(
+                1, served[:, None])[:, 0]
+            worst = max(worst, float(margin.max()))
+    log(f"  teacher-forced vs the unprotected forward: largest logit gap "
+        f"{gap:.4g}; served tokens at most {worst:.4g} below the reference's "
+        f"top logit (limit {DELTA})")
+    if not worst <= DELTA:
+        fail(f"a served token's reference logit is {worst:.4g} below the top")
+    res["teacher_forced"] = {"max_logit_gap": gap, "max_margin": worst}
+
+    # -- timings: three sessions in turns, three rounds ----------------------
+    sessions = {"unprotected": (ucfg, None), "kernels_off": (cfg, plan),
+                "kernels_on": (cfg, fused)}
+    times = {k: {"decode_ms": [], "ttft_ms": []} for k in sessions}
+    for rnd in range(3):
+        keys = list(sessions)
+        for k in keys[rnd:] + keys[:rnd]:
+            kcfg, kplan = sessions[k]
+            _, _, rp, st = serve(params, kcfg, kplan, prompts, GEN)
+            times[k]["decode_ms"].append(statistics.median(st["ms"]))
+            times[k]["ttft_ms"].append(rp["ttft_p50_s"] * 1e3)
+    for k, v in times.items():
+        log(f"  {k}: median decode step ms {v['decode_ms']}, TTFT p50 ms "
+            f"{v['ttft_ms']}")
+    med = {k: {m: statistics.median(v[m]) for m in v} for k, v in times.items()}
+    over = {k: {m: med[k][m] / med["unprotected"][m] - 1 for m in med[k]}
+            for k in ("kernels_off", "kernels_on")}
+    for k, v in over.items():
+        log(f"  error-free overhead, {k}: decode step "
+            f"{v['decode_ms'] * 100:.1f}%, TTFT p50 {v['ttft_ms'] * 100:.1f}%")
+    res["times"], res["overhead"] = times, over
+
+    # -- profile of one decode step of each session ---------------------------
+    res["profile"] = {}
+    for k, (kcfg, kplan) in sessions.items():
+        from repro_torch.serving import ProtectedSession
+        ps = ProtectedSession(params, kcfg, kplan, slots=SLOTS,
+                              max_len=MAX_LEN, device=DEVICE)
+        for p in prompts[:SLOTS]:
+            ps.submit(p, max_new_tokens=GEN)
+        ps.step()                     # admits all 8, one decode step
+        prof = profile_forward(ps.step)
+        res["profile"][k] = prof
+        log(f"  profile, one decode step {k}: wall {prof['wall_ms']:.3f} ms, "
+            f"device busy {prof['device_ms']:.3f} ms ({prof['kernels']} "
+            f"kernels), idle share {prof['idle_share']:.3f}; top: " + ", ".join(
+                f"{t['name'][:40]} {t['ms']:.3f}" for t in prof["top"][:4]))
+
+    # -- phase 7: injected faults ---------------------------------------------
+    log("phase 7: serving drills")
+    drill_prompts, drill_ids = prompts[:SLOTS], rids[:SLOTS]
+    clean = [tokens[r][:8] for r in drill_ids]
+    target = 3
+
+    def decode_hook(o):
+        if o.dim() == 3 and o.shape[0] == SLOTS and o.shape[1] == 1:
+            o = o.clone()
+            o[target, 0, 1234 % o.shape[-1]] += 1e4
+        return o
+
+    s_d, r_d, rep_d, st_d = serve(params, cfg, fused, drill_prompts, 8,
+                                  hook=("embed/table", decode_hook))
+    recs = {r["id"]: r for r in rep_d["requests"]}
+    by_slot = {recs[r]["slot"]: recs[r] for r in r_d}
+    cd = rep_d["counters"]
+    hit_slots = sorted({i for h in st_d["hits"] for i, x in enumerate(h) if x})
+    ok = (by_slot[target]["faults_detected"] == cd["decode_steps"]
+          and by_slot[target]["corrections_applied"] == cd["decode_steps"]
+          and by_slot[target]["residuals"] == 0
+          and all(v["faults_detected"] == 0 for sl, v in by_slot.items()
+                  if sl != target)
+          and cd["faults_unattributed"] == 0 and cd["residual_steps"] == 0
+          and hit_slots == [target])
+    same = [s_d.tokens_for(r) for r in r_d] == clean
+    log(f"  decode fault at embed/table, slot {target}: {cd['faults_detected']} "
+        f"detected / {cd['faults_corrected']} corrected over "
+        f"{cd['decode_steps']} steps, localizer hit slots {hit_slots}, "
+        f"unattributed {cd['faults_unattributed']}, residual steps "
+        f"{cd['residual_steps']}; tokens == clean: {same}")
+    if not (ok and same):
+        fail(f"decode drill: {by_slot} counters {cd} tokens equal {same}")
+
+    def prefill_hook(o):
+        if o.shape[0] == 1 and o.shape[1] > 1:
+            o = o.clone()
+            o[0, 5, 17] += 1e3
+        return o
+
+    s_p, r_p, rep_p, _ = serve(params, cfg, fused, drill_prompts, 8,
+                               hook=("stages/b0_attn_full/attn/wq",
+                                     prefill_hook))
+    recs = {r["id"]: r for r in rep_p["requests"]}
+    cp_ = rep_p["counters"]
+    ok = all(recs[r]["prefill_detected"] == 1 and recs[r]["residuals"] == 0
+             for r in r_p) and cp_["residual_steps"] == 0
+    same = [s_p.tokens_for(r) for r in r_p] == clean
+    log(f"  prefill fault at stages/b0_attn_full/attn/wq (every repeat): "
+        f"prefill_detected {[recs[r]['prefill_detected'] for r in r_p]}, "
+        f"residuals {[recs[r]['residuals'] for r in r_p]}, corrected "
+        f"{cp_['faults_corrected']}/{cp_['faults_detected']}; tokens == clean: "
+        f"{same}")
+    if not (ok and same):
+        fail(f"prefill drill: {recs} counters {cp_} tokens equal {same}")
+    res["drills"] = {"decode": {"counters": cd, "target": by_slot[target],
+                                "hit_slots": hit_slots},
+                     "prefill": {"counters": cp_}}
+    report["serving"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH",
@@ -657,15 +1134,26 @@ def main(argv=None) -> int:
 
     log("phase 3: kernels vs their plain versions")
     from repro_torch.models import cnn
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cfg = cnn.resnet18(1.0)
     kernels = [check_checksum_reduce(cfg, gen, report),
                check_abft_matmul(cfg, gen, report)]
+    log("phase 3b: the serving path's kernels at SmolLM-360M's shapes")
+    kernels += check_serving_kernels(gen, report)
 
     log("phase 4: the slice")
     res = run_slice(report)
-    for k in kernels:
+    for k in kernels[:2]:
         k["launches"] = res["per_layer"]["launches"][k["name"]]
+
+    log("phase 6: the serving slice")
+    serving = run_serving(report)
+    # the detect kernel's count is the deferred main path's; the serving
+    # abft_matmul row's is the per_layer path's (0 launches when deferred
+    # and clean)
+    kernels[2]["launches"] = serving["deferred"]["launches"][
+        "abft_matmul_detect"]
+    kernels[3]["launches"] = serving["per_layer"]["launches"]
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"total {report['seconds']:.1f} s")

@@ -25,21 +25,25 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 @contextlib.contextmanager
 def fp32_ieee(enabled: bool = True) -> Iterator[None]:
-    """Run fp32 convolutions and matmuls in IEEE fp32, not TF32.
+    """Run fp32 convolutions and matmuls in IEEE fp32, not TF32, and
+    accumulate bf16 matmuls in fp32 with one rounding.
 
     The detection thresholds (core/thresholds.py) price fp32 accumulation
     noise; cuDNN runs fp32 convs in TF32 by default, ~2^13 times coarser,
-    which would flag every clean layer. The flags are process-global, so
-    the scope sets both and restores what it found."""
+    which would flag every clean layer, and cuBLAS may reduce a bf16
+    product's split-K partials in bf16. The flags are process-global, so
+    the scope sets all three and restores what it found."""
     if not enabled:
         yield
         return
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    mm = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved

@@ -1,5 +1,5 @@
-"""Offline-compiled, model-level protection plans (twin of the CNN part of
-repro.core.plan).
+"""Offline-compiled, model-level protection plans (twin of
+repro.core.plan: the CNN and the transformer halves).
 
     plan = build_plan(params, cnn_cfg, batch=8)      # offline, once
     plan.save("plan.json")                           # JSON + sibling .npz
@@ -9,9 +9,11 @@ repro.core.plan).
 
 A plan maps param-tree paths to `PlanEntry`s: the op geometry (`OpSpec`),
 the SS4.3 policy decision (a `ProtectConfig`) and the precomputed weight
-checksums. The file format is the JAX package's `repro.plan/v1`, so a plan
-saved by either package loads in the other; locator sums stay host numpy
-float64.
+checksums. Transformer stage entries are stacked: their weights and
+checksums keep the leading repeats axis, and the forward swaps in each
+repeat's slice (`entry_overrides`). The file format is the JAX package's
+`repro.plan/v1`, so a plan saved by either package loads in the other;
+locator sums stay host numpy float64.
 """
 from __future__ import annotations
 
@@ -28,9 +30,9 @@ import torch
 from .._device import DeviceLike, resolve_device
 from . import checksums as C
 from .policy import CostModel, OpShape, cost_model_doc, decide_rc_clc
-from .protected import (WeightChecksums, protect_matmul_output,
-                        protected_conv, protected_matmul,
-                        weight_checksums_matmul)
+from .protected import (WeightChecksums, matmul_raw, pick_chunk,
+                        protect_matmul_output, protected_conv,
+                        protected_matmul, weight_checksums_matmul)
 from .types import (DEFAULT_CONFIG, DetectEvidence, FaultReport,
                     ProtectConfig)
 
@@ -62,6 +64,41 @@ class OpSpec:
         return [(self.pad, self.pad)] * 2
 
 
+# Named weight views: how an entry's GEMM weight derives from the param
+# leaf it is keyed under. The tied-embeddings LM head's (d, nc*V) weight is
+# the transposed flattened embedding table - a view, never a copy.
+W_VIEWS = {
+    "tied_head": lambda w: w.reshape(-1, w.shape[-1]).T,
+}
+
+# Inverse views: write a GEMM weight back onto the leaf it derives from;
+# apply_w_view(apply_w_view_inv(v, view, leaf.shape), view) == v.
+W_VIEWS_INV = {
+    "tied_head": lambda v, shape: v.T.reshape(shape),
+}
+
+
+def apply_w_view(w, view: Optional[str]):
+    """Resolve a param leaf to the GEMM weight an entry was encoded from."""
+    if view is None:
+        return w
+    if view not in W_VIEWS:
+        raise ValueError(f"unknown weight view {view!r} "
+                         f"(have {sorted(W_VIEWS)})")
+    return W_VIEWS[view](w)
+
+
+def apply_w_view_inv(v, view: Optional[str], leaf_shape):
+    """Invert a weight view: map an entry's GEMM weight back onto the
+    param leaf of shape `leaf_shape` it derives from."""
+    if view is None:
+        return v
+    if view not in W_VIEWS_INV:
+        raise ValueError(f"weight view {view!r} has no inverse "
+                         f"(have {sorted(W_VIEWS_INV)})")
+    return W_VIEWS_INV[view](v, tuple(leaf_shape))
+
+
 def _dtype_name(dtype: torch.dtype) -> str:
     """The dtype's name as the JAX package records it ("float32")."""
     return str(dtype).replace("torch.", "")
@@ -80,8 +117,11 @@ class PlanEntry:
     w_dtype: Optional[str] = None
     w_sum: Optional[float] = None
     w_asum: Optional[float] = None
+    # leading stack axes on the recorded weight (1 for the transformer
+    # stages, whose params carry a leading repeats axis; the op sees one
+    # slice) - checksums of stacked entries keep a matching axis
     stack: int = 0
-    w_view: Optional[str] = None
+    w_view: Optional[str] = None     # W_VIEWS derivation of the GEMM weight
     # deferred-workflow membership ("per_layer" | "deferred" | None)
     execution: Optional[str] = None
 
@@ -242,6 +282,23 @@ def path_scope(*segments: str) -> Iterator[None]:
         ctx.prefix = saved
 
 
+@contextlib.contextmanager
+def entry_overrides(mapping: Dict[str, PlanEntry]) -> Iterator[None]:
+    """Override resolved entries by absolute path for the scope: the
+    stage loop swaps a stacked entry for the per-repeat view carrying
+    that repeat's checksum slice."""
+    ctx = _CTX.get()
+    if ctx is None:
+        yield
+        return
+    saved = dict(ctx.overrides)
+    ctx.overrides.update(mapping)
+    try:
+        yield
+    finally:
+        ctx.overrides = saved
+
+
 def current_path(name: str = "") -> str:
     ctx = _CTX.get()
     parts = (ctx.prefix if ctx is not None else ()) + ((name,) if name else ())
@@ -303,8 +360,39 @@ def protect_site(name: str, inputs, *, entry: Optional[PlanEntry] = None,
         else None
     if op is None:
         op = entry.op if entry is not None else OpSpec("matmul")
+    if o is None and op.kind == "matmul":
+        # serving-drill seam: an ambient fault hook at this exact path
+        # (injection.fault_scope) corrupts the raw output, which then takes
+        # the ordinary `o=` injection path
+        from .injection import site_fault
+        hook = site_fault(current_path(name))
+        if hook is not None:
+            d, w = inputs[0], inputs[1]
+            lead, k, m = d.shape[:-1], d.shape[-1], w.shape[-1]
+            d2 = d.reshape(-1, k)
+            o2 = _site_product(d2, w, entry.cfg if entry is not None
+                               else use_cfg)
+            if len(inputs) > 2:
+                o2 = (o2.to(torch.float32)
+                      + inputs[2].to(torch.float32)).to(o2.dtype)
+            o2 = hook(o2.reshape(*lead, m))
+            out, rep = protect_op(op, (d2,) + tuple(inputs[1:]),
+                                  entry=entry, cfg=use_cfg,
+                                  o=o2.reshape(-1, m), mode=mode,
+                                  detected=detected)
+            return out.reshape(*lead, m), rep
     return protect_op(op, inputs, entry=entry, cfg=use_cfg, o=o, mode=mode,
                       detected=detected)
+
+
+def _site_product(d2, w, cfg: Optional[ProtectConfig]):
+    """A site's raw product by the site's own route - the kernel's O where
+    the config pins the fused kernel, the plain product otherwise - so the
+    rows a fault hook leaves alone stay bitwise the clean path's."""
+    if cfg is not None and cfg.enabled and cfg.use_fused_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.abft_matmul(d2.contiguous(), w)[0]
+    return matmul_raw(d2, w)
 
 
 # --------------------------------------------------------------------------
@@ -361,13 +449,9 @@ class ProtectionPlan:
         problems = []
         for name, e in self.entries.items():
             try:
-                w = weight_leaf(params, name)
+                w = apply_w_view(weight_leaf(params, name), e.w_view)
             except KeyError:
                 problems.append(f"{name}: not found in params")
-                continue
-            if e.w_view is not None:
-                problems.append(f"{name}: weight view {e.w_view!r} is not "
-                                "ported")
                 continue
             if e.w_shape is not None and tuple(w.shape) != tuple(e.w_shape):
                 problems.append(f"{name}: shape {tuple(e.w_shape)} in plan "
@@ -536,15 +620,81 @@ def _cnn_spec(arch_cfg, batch: int) -> ProtectionSpec:
     return ProtectionSpec(sites=sites, base=base, meta=meta)
 
 
-def protection_spec(arch_cfg, batch: int = 8) -> ProtectionSpec:
-    """The ProtectionSpec of a models.cnn.CNNConfig (or a spec as is)."""
+def _block_sites(prefix: str, kind: str, cfg, stack: int,
+                 rows: int) -> List[OpSite]:
+    """GEMM sites of one transformer block, keyed by the exact param-tree
+    paths models.transformer.init_params creates; `rows` (the planned
+    batch*seq) gives each site its OpShape."""
+    d, hd = cfg.d_model, cfg.head_dim
+    mm = OpSpec("matmul")
+
+    def site(rel, k_dim, m):
+        return OpSite(f"{prefix}/{rel}", mm, k_dim,
+                      shape=OpShape(n=rows, m=m, ch=k_dim), stack=stack)
+
+    if kind.startswith("attn"):
+        q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        return [site("attn/wq", d, q), site("attn/wk", d, kv),
+                site("attn/wv", d, kv), site("attn/wo", q, d)]
+    if kind == "ffn":
+        return [site("ffn/gate", d, cfg.d_ff), site("ffn/up", d, cfg.d_ff),
+                site("ffn/down", cfg.d_ff, d)]
+    if kind in ("moe", "ssm", "rec"):
+        raise NotImplementedError(
+            f"protection_spec: {kind!r} blocks are not ported yet "
+            "(ROADMAP item 1.7)")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+DEFAULT_PLAN_SEQ = 128
+
+
+def _transformer_spec(cfg, batch: int, seq: int) -> ProtectionSpec:
+    base = ProtectConfig(enabled=cfg.abft, row_chunk=cfg.abft_row_chunk,
+                         col_chunk=cfg.abft_col_chunk,
+                         detect_only=cfg.abft_detect_only)
+    pattern, reps, rem = cfg.stages()
+    rows = batch * max(seq, 1)
+    sites: List[OpSite] = []
+    for i, kind in enumerate(cfg.prefix_pattern):
+        sites += _block_sites(f"prefix/b{i}_{kind}", kind, cfg, stack=0,
+                              rows=rows)
+    if reps:
+        for i, kind in enumerate(pattern):
+            sites += _block_sites(f"stages/b{i}_{kind}", kind, cfg,
+                                  stack=1, rows=rows)
+    for i, kind in enumerate(rem):
+        sites += _block_sites(f"rem/b{i}_{kind}", kind, cfg, stack=0,
+                              rows=rows)
+    head_shape = OpShape(n=rows, m=cfg.vocab_size * max(cfg.num_codebooks, 1),
+                         ch=cfg.d_model)
+    if cfg.tie_embeddings:
+        sites.append(OpSite("embed/table", OpSpec("matmul"),
+                            k_dim=cfg.d_model, shape=head_shape,
+                            w_view="tied_head", optional=False))
+    else:
+        sites.append(OpSite("embed/head", OpSpec("matmul"),
+                            k_dim=cfg.d_model, shape=head_shape,
+                            optional=False))
+    meta = {"arch": getattr(cfg, "name", "?"), "batch": batch, "seq": seq,
+            "family": getattr(cfg, "family", "?"), "stage_repeats": reps}
+    return ProtectionSpec(sites=sites, base=base, meta=meta)
+
+
+def protection_spec(arch_cfg, batch: int = 8,
+                    seq: int = DEFAULT_PLAN_SEQ) -> ProtectionSpec:
+    """The ProtectionSpec of a models.cnn.CNNConfig (`.convs` walk), of a
+    transformer configs.base.ModelConfig (`.stages()` walk; `seq` is the
+    planned sequence length) or a spec as is."""
     if isinstance(arch_cfg, ProtectionSpec):
         return arch_cfg
     if hasattr(arch_cfg, "convs"):
         return _cnn_spec(arch_cfg, batch)
+    if hasattr(arch_cfg, "stages"):
+        return _transformer_spec(arch_cfg, batch, seq)
     raise TypeError(
-        "protection_spec expects a CNNConfig (.convs) or a ProtectionSpec "
-        f"(transformer configs are not ported yet); got "
+        "protection_spec expects a CNNConfig (.convs), a transformer "
+        f"ModelConfig (.stages) or a ProtectionSpec; got "
         f"{type(arch_cfg).__name__}")
 
 
@@ -557,6 +707,30 @@ def _fingerprint_of(w) -> Tuple[float, float]:
     return float(torch.sum(w32)), float(torch.sum(torch.abs(w32)))
 
 
+def stacked_weight_checksums_matmul(w, col_chunk: int) -> WeightChecksums:
+    """Offline checksums of a stacked (reps, K, M) weight: one encode per
+    repeat slice, stored with a matching leading reps axis so the stage
+    loop hands each repeat its own slice."""
+    per = [weight_checksums_matmul(w[i], col_chunk)
+           for i in range(int(w.shape[0]))]
+    return WeightChecksums(torch.stack([p.cw1 for p in per]),
+                           torch.stack([p.cw2 for p in per]),
+                           pick_chunk(int(w.shape[-1]), col_chunk))
+
+
+def stacked_weight_locators_matmul(w, col_chunk: int) -> C.WeightLocators:
+    """Offline locator sums of a stacked (reps, K, M) weight, one encode
+    per repeat slice in float64 on the host, stacked on a leading reps
+    axis."""
+    per = [C.weight_locators_matmul(w[i], col_chunk)
+           for i in range(int(w.shape[0]))]
+    return C.WeightLocators(np.stack([p.r1 for p in per]),
+                            np.stack([p.r2 for p in per]),
+                            np.stack([p.c1 for p in per]),
+                            np.stack([p.c2 for p in per]),
+                            pick_chunk(int(w.shape[-1]), col_chunk))
+
+
 def _site_entry(site: OpSite, w, cfg: ProtectConfig) -> PlanEntry:
     """Compile one OpSite against its (possibly absent) weight leaf."""
     if site.op.kind == "conv":
@@ -564,6 +738,11 @@ def _site_entry(site: OpSite, w, cfg: ProtectConfig) -> PlanEntry:
                        pad=site.op.pad, groups=site.op.groups)
     elif w is None:
         e = PlanEntry(site.path, site.op, cfg)
+    elif site.stack:
+        e = PlanEntry(site.path, site.op, cfg,
+                      wck=stacked_weight_checksums_matmul(w, cfg.col_chunk),
+                      wlc=stacked_weight_locators_matmul(w, cfg.col_chunk),
+                      w_shape=tuple(w.shape), w_dtype=_dtype_name(w.dtype))
     else:
         e = matmul_entry(site.path, w, cfg)
     e.stack = site.stack
@@ -574,25 +753,29 @@ def _site_entry(site: OpSite, w, cfg: ProtectConfig) -> PlanEntry:
 
 
 def build_plan(params, arch_cfg, cost_model: Optional[CostModel] = None,
-               batch: int = 8, calibrate_tau: bool = True,
+               batch: int = 8, seq: int = DEFAULT_PLAN_SEQ,
+               calibrate_tau: bool = True,
                device: DeviceLike = None) -> ProtectionPlan:
     """Compile a model-level protection plan (the offline phase).
 
-    Per site it decides RC/ClC from the SS4.3 analytic cost model (conv
-    sites), calibrates the per-layer detection threshold factor from the
-    contraction depth, and - when `params` is given - precomputes the
-    weight checksums on `device` (the card unless the caller asks for the
-    CPU). `params=None` builds a policy-only plan. Profiling the kernels
-    and the measured roofline cost model are not ported yet."""
+    `arch_cfg` is a CNNConfig, a transformer ModelConfig or a
+    ProtectionSpec. Per site it decides RC/ClC from the SS4.3 analytic cost
+    model (conv sites), calibrates the per-layer detection threshold
+    factor from the contraction depth, and - when `params` is given -
+    precomputes the weight checksums on `device` (the card unless the
+    caller asks for the CPU); stage sites are encoded per repeat slice and
+    stored stacked. `params=None` builds a policy-only plan. Profiling the
+    kernels and the measured roofline cost model are not ported yet."""
     dev = resolve_device(device)
-    spec = protection_spec(arch_cfg, batch=batch)
+    spec = protection_spec(arch_cfg, batch=batch, seq=seq)
     base = spec.base
     entries: Dict[str, PlanEntry] = {}
     for site in spec.sites:
         w = None
         if params is not None:
             try:
-                w = weight_leaf(params, site.path)
+                w = apply_w_view(weight_leaf(params, site.path),
+                                 site.w_view)
             except KeyError:
                 if site.optional:
                     continue

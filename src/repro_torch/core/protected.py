@@ -44,6 +44,17 @@ def pick_chunk(n: int, target: int) -> int:
     return best
 
 
+def matmul_raw(d2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain product D @ W as the JAX package spells it
+    (jnp.dot(..., preferred_element_type=F32).astype(d.dtype)): fp32
+    accumulation, one rounding to D's type. cuBLAS does that for bf16
+    inside repro_torch.fp32_ieee(), which turns its reduced-precision
+    reductions off; the CPU takes the fp32 product and rounds it."""
+    if d2.dtype == F32 or d2.device.type == "cuda":
+        return d2 @ w.to(d2.dtype)
+    return (d2.to(F32) @ w.to(F32)).to(d2.dtype)
+
+
 def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=F32, device=device)
 
@@ -286,8 +297,8 @@ def protect_matmul_output(
         detected = flag if detected is None else _carried(detected)
 
     # ---------------- correction ladder (runs only when flagged) ----------
-    w32 = w.to(F32)
-    d32 = d2.to(F32)
+    # the fp32 operands are taken only where a rung needs them (a site
+    # that does not flag reads W once, in its detection pass)
     dev = o.device
 
     def _chunk_view(o):
@@ -308,9 +319,10 @@ def protect_matmul_output(
 
     def _rowcol_checksums(cs):
         """c1..c4 for the RC/ClC/FC rungs (only paid when flagged)."""
+        w32 = w.to(F32)
         c1 = (cs.cd1 @ w32).reshape(nb, 1, mb, cb).permute(0, 2, 3, 1)
         c3 = (cs.cd2 @ w32).reshape(nb, 1, mb, cb).permute(0, 2, 3, 1)
-        d3 = d32.reshape(nb, rb, k)
+        d3 = d2.to(F32).reshape(nb, rb, k)
         c2 = torch.einsum("brk,mk->bmr", d3, cs.cw1)[..., None]
         c4 = torch.einsum("brk,mk->bmr", d3, cs.cw2)[..., None]
         if adj is not None:
@@ -367,7 +379,33 @@ def protect_matmul_output(
         return _unchunk(fixed), ok
 
     rungs = _ladder_rungs(cfg, _run_scheme)
-    return run_ladder(o, detected, rungs, _verify, recompute_fn)
+    out, rep = run_ladder(o, detected, rungs, _verify, recompute_fn)
+    if o.dtype != F32 and rep.corrected_by in (T.COC, T.RC, T.CLC, T.FC):
+        out = _recompute_located(o, out, d2, w, bias)
+    return out, rep
+
+
+def _recompute_located(o_in, o_fixed, d2, w, bias):
+    """Recompute, as fp32 dot products rounded once, the elements a
+    checksum scheme changed in a sub-fp32 output.
+
+    A scheme's fix is O + (C - S), and S sums the rounded output: in bf16
+    the fix carries the chunk's summed rounding noise, ~sqrt(rb*cb) ulps
+    (e.g. 0.69 on an element of 0.96 for a 128 x 960 chunk), where the
+    JAX package stops (ROADMAP 3.2). The scheme has located the elements;
+    their dot products restore them to the clean product's rounding."""
+    changed = o_fixed != o_in
+    rows = torch.nonzero(torch.any(changed, dim=1)).flatten()
+    cols = torch.nonzero(torch.any(changed, dim=0)).flatten()
+    if rows.numel() == 0:
+        return o_fixed
+    ix = (rows[:, None], cols[None, :])
+    sub = d2[rows].to(F32) @ w[:, cols].to(F32)
+    if bias is not None:
+        sub = sub + bias[cols].to(F32)
+    out = o_fixed.clone()
+    out[ix] = torch.where(changed[ix], sub.to(o_fixed.dtype), o_fixed[ix])
+    return out
 
 
 def protected_matmul(
@@ -386,7 +424,7 @@ def protected_matmul(
     m = w.shape[-1]
     d2 = d.reshape(-1, k)
     if cfg is None or not cfg.enabled:
-        o = d2 @ w
+        o = matmul_raw(d2, w)
         if bias is not None:
             o = o + bias.to(o.dtype)
         return _clean_result(o.reshape(*lead, m), mode)
@@ -396,13 +434,24 @@ def protected_matmul(
         rb = pick_chunk(d2.shape[0], cfg.row_chunk)
         cb = wck.col_chunk if wck is not None else pick_chunk(m, cfg.col_chunk)
         if mode == "detect_only" and bias is None:
-            # the JAX package runs its single-launch GEMM + CoC-D compare
-            # kernel (abft_matmul_detect) here; taking the partials route
-            # instead would quietly change what this site launches
-            raise NotImplementedError(
-                "protected_matmul: the fused detect-only path of a bias-free "
-                "site needs the abft_matmul_detect kernel, which is not "
-                "ported yet (ROADMAP item 2.3)")
+            # the single-launch detect path: GEMM + CoC-D compare per
+            # (rb x cb) chunk in one kernel; only the O(K)-sized checksum
+            # encode and two max-reduces over the chunk verdicts run
+            # outside it. Bias-carrying sites keep the partials route (the
+            # kernel compares the raw product).
+            wck_d = wck if wck is not None \
+                else weight_checksums_matmul(w, cb)
+            cd1, cd2 = _encode_d_chunked(d2, rb)
+            cs = _scalar_checksums(cd1, cd2, wck_d)
+            tau_a, tau_b = TH.tau_scalar_coeffs(k, d.dtype, cfg.tau_factor)
+            res = kops.abft_matmul_detect(
+                d2.contiguous(), w, cs.c5, cs.c6, cs.c7, cs.absdot, rb=rb,
+                cb=cb, bk=(cfg.kernel_tiles or (0, 0, 256))[2], tau_a=tau_a,
+                tau_b=tau_b, weighted=cfg.detect_weighted)
+            if res is not None:
+                o, flag, score = res
+                return (o.reshape(*lead, m),
+                        T.DetectEvidence(torch.max(flag), torch.max(score)))
         bm, bn, bk = cfg.kernel_tiles or (kops._tile(rb, 256),
                                           kops._tile(cb, 256), 256)
         if d2.device.type == "cuda":
@@ -410,11 +459,11 @@ def protected_matmul(
             # divide the chunk: chunk_sums_from_partials refuses the
             # element-resolution plain pass on the card
             bm, bn = kops._tile(rb, bm), kops._tile(cb, bn)
-        o, parts = kops.abft_matmul(d2.contiguous(), w.contiguous(),
+        o, parts = kops.abft_matmul(d2.contiguous(), w,
                                     bm=bm, bn=bn, bk=bk)
         pre = kops.chunk_sums_from_partials(parts, rb, cb, o=o)
     else:
-        o = d2 @ w
+        o = matmul_raw(d2, w)
         pre = None
     if bias is not None:
         o = (o.to(F32) + bias.to(F32)).to(o.dtype)

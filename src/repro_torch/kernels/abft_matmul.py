@@ -1,70 +1,113 @@
-"""Fused ABFT matmul: O = D @ W with the output summations in the GEMM
-epilogue (twin of repro.kernels.abft_matmul's `abft_matmul`).
+"""Fused ABFT matmul: O = D @ W with the ABFT work in the GEMM epilogue
+(twin of repro.kernels.abft_matmul's `abft_matmul` and
+`abft_matmul_detect`).
+
+`abft_matmul` returns the output summation partials
 
     colsum : (N/bm, M)    per-row-tile column sums   -> S_o1/S_o5/S_o7
     rowsum : (N, M/bn)    per-col-tile row sums      -> S_o2/S_o6
     sumsq  : (N/bm, M/bn) per-tile sum of squares    -> detection threshold
 
-kernels.ops.chunk_sums_from_partials finishes them at any chunk
-granularity that is a multiple of (bm, bn). On a CUDA tensor this launches
-the CUDA kernel in csrc/abft_matmul.cu, whose block tile (64 x 64, or
-16 x 32 for N <= 16) reduces to partials at granularity up to 64 in each
-axis; a coarser (bm, bn) is summed from those. On a CPU tensor it runs the plain version
-(ref.abft_matmul_ref). `LAUNCHES` counts the kernel's launches.
+which kernels.ops.chunk_sums_from_partials finishes at any chunk
+granularity that is a multiple of (bm, bn). `abft_matmul_detect` runs the
+CoC-D compare itself and returns one flag and one score per (rb x cb)
+detection chunk.
 
-The JAX package's third kernel, `abft_matmul_detect` (the GEMM with the
-CoC-D compare in its epilogue), is not ported yet.
+On a CUDA tensor both launch the CUDA kernels in csrc/abft_matmul.cu,
+which share one mainloop (so they round O identically); its block tile
+(64 x 64, or 16 x 32 for N <= 16) is chosen by the source, which the
+wrappers ask through `repro_abft_tiling`, and a coarser partial granularity
+is summed from the tile's. Operands are float32 or bfloat16 (O in D's type, every sum
+in fp32). W is (K, M) row-major or the transposed view of an (M, K)
+row-major tensor (the tied LM head), read in place. On a CPU tensor each
+runs its plain version (ref.py). `LAUNCHES` and `DETECT_LAUNCHES` count the
+kernels' launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from . import _build
-from .ref import abft_matmul_ref
+from .ref import abft_matmul_detect_ref, abft_matmul_ref
 
 F32 = torch.float32
-KERNEL_TILE = 64   # the coarsest partial tile the CUDA kernel reduces to
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
+DETECT_LAUNCHES = 0
 
 
 def _pow2(x: int) -> bool:
     return x >= 1 and x & (x - 1) == 0
 
 
-def _launch(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int) -> Tuple:
-    global LAUNCHES
-    if d.dtype != F32 or w.dtype != F32:
+@functools.lru_cache(maxsize=None)
+def kernel_tiling(n: int, cb: int = 0) -> Tuple[int, int, int]:
+    """(tm, tn, seg) of an N-row product as the CUDA source chooses it:
+    the block tile, and for a detection chunk width cb > 0 the column
+    segment the detect pass sums rows over (0 when cb is 0)."""
+    fn = _build.function("abft_matmul", "repro_abft_tiling",
+                         [ctypes.c_int] * 2
+                         + [ctypes.POINTER(ctypes.c_int)] * 3)
+    out = [ctypes.c_int() for _ in range(3)]
+    if fn(n, cb, *(ctypes.byref(x) for x in out)):
+        raise ValueError(f"abft_matmul: no tiling for n={n}, cb={cb}")
+    return tuple(x.value for x in out)
+
+
+def _operands(d: torch.Tensor, w: torch.Tensor, what: str):
+    """(dtype code, W layout code) of operands the kernel takes; raises on
+    anything else."""
+    if d.dtype != w.dtype or d.dtype not in DTYPES:
         raise NotImplementedError(
-            f"abft_matmul kernel takes float32, got {d.dtype} @ {w.dtype}")
-    if not (d.is_contiguous() and w.is_contiguous()):
-        raise ValueError("abft_matmul kernel needs contiguous operands")
+            f"{what} kernel takes float32 or bfloat16 operands of one type, "
+            f"got {d.dtype} @ {w.dtype}")
     if d.device != w.device:
         raise ValueError(f"operands on {d.device} and {w.device}")
+    if not d.is_contiguous():
+        raise ValueError(f"{what} kernel needs a contiguous D")
+    k, m = w.shape
+    if w.stride() == (m, 1) or m == 1:
+        layout = 0
+    elif w.stride() == (1, k):
+        layout = 1          # the transposed view of an (M, K) tensor
+    else:
+        raise ValueError(f"{what} kernel reads W as (K, M) row-major or as "
+                         f"the transpose of an (M, K) row-major tensor; got "
+                         f"strides {w.stride()} for shape {tuple(w.shape)}")
+    return DTYPES[d.dtype], layout
+
+
+def _launch(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int) -> Tuple:
+    global LAUNCHES
+    dt, layout = _operands(d, w, "abft_matmul")
     if not (_pow2(bm) and _pow2(bn)):
         raise ValueError(f"partial tiles must be powers of two, got {bm, bn}")
     n, k = d.shape
     m = w.shape[1]
-    pbm, pbn = min(bm, KERNEL_TILE), min(bn, KERNEL_TILE)
+    tm, tn, _ = kernel_tiling(n)
+    pbm, pbn = min(bm, tm), min(bn, tn)
     gm, gn = bm // pbm, bn // pbn
     rows_t, cols_t = -(-n // bm), -(-m // bn)
     dev = d.device
     # tiles past the edge of O are not written; when kernel partials are
     # summed into coarser ones they must read as zero
     alloc = torch.zeros if gm > 1 or gn > 1 else torch.empty
-    o = torch.empty((n, m), dtype=F32, device=dev)
+    o = torch.empty((n, m), dtype=d.dtype, device=dev)
     colsum = alloc((rows_t * gm, m), dtype=F32, device=dev)
     rowsum = alloc((n, cols_t * gn), dtype=F32, device=dev)
     sumsq = alloc((rows_t * gm, cols_t * gn), dtype=F32, device=dev)
-    fn = _build.function("abft_matmul", "repro_abft_matmul_f32",
-                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn = _build.function("abft_matmul", "repro_abft_matmul",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                          + [ctypes.c_void_p])
-    _build.launch(fn, dev, d.data_ptr(), w.data_ptr(), o.data_ptr(), n,
-                        k, m, pbm, pbn, colsum.data_ptr(), rowsum.data_ptr(),
-                        sumsq.data_ptr(), cols_t * gn, cols_t * gn)
+    _build.launch(fn, dev, d.data_ptr(), w.data_ptr(), o.data_ptr(), dt,
+                  layout, n, k, m, pbm, pbn, colsum.data_ptr(),
+                  rowsum.data_ptr(), sumsq.data_ptr(), cols_t * gn,
+                  cols_t * gn)
     LAUNCHES += 1
     if gm > 1:
         colsum = colsum.reshape(rows_t, gm, m).sum(dim=1)
@@ -88,3 +131,61 @@ def abft_matmul(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int
     if d.device.type != "cuda":
         raise ValueError(f"abft_matmul: unsupported device {d.device}")
     return _launch(d, w, bm, bn)
+
+
+def _launch_detect(d, w, c5, c6, c7, absdot, rb, cb, tau_a, tau_b,
+                   weighted) -> Tuple:
+    global DETECT_LAUNCHES
+    dt, layout = _operands(d, w, "abft_matmul_detect")
+    n, k = d.shape
+    m = w.shape[1]
+    dev = d.device
+    chk = [x.contiguous() for x in (c5, c6, c7, absdot)]
+    for x in chk:
+        if x.dtype != F32 or x.device != dev:
+            raise ValueError("abft_matmul_detect: checksums must be float32 "
+                             f"on {dev}, got {x.dtype} on {x.device}")
+    seg = kernel_tiling(n, cb)[2]
+    o = torch.empty((n, m), dtype=d.dtype, device=dev)
+    part = torch.empty((3, n, m // seg), dtype=F32, device=dev)
+    flag = torch.empty((n // rb, m // cb), dtype=torch.int32, device=dev)
+    score = torch.empty((n // rb, m // cb), dtype=F32, device=dev)
+    fn = _build.function("abft_matmul", "repro_abft_matmul_detect",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2
+                         + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+    _build.launch(fn, dev, d.data_ptr(), w.data_ptr(), o.data_ptr(), dt,
+                  layout, n, k, m, rb, cb, *(x.data_ptr() for x in chk),
+                  float(tau_a), float(tau_b), int(bool(weighted)),
+                  part.data_ptr(), flag.data_ptr(), score.data_ptr())
+    DETECT_LAUNCHES += 1
+    return o, flag, score
+
+
+def abft_matmul_detect(d: torch.Tensor, w: torch.Tensor, c5, c6, c7, absdot,
+                       rb: int, cb: int, tau_a: float, tau_b: float,
+                       weighted: bool = True) -> Tuple[torch.Tensor,
+                                                       torch.Tensor,
+                                                       torch.Tensor]:
+    """(O, flag (N/rb, M/cb) int32, score (N/rb, M/cb) float32) of
+    O = D @ W with the CoC-D compare per (rb x cb) chunk against the
+    chunk-local checksum predictions c5/c6/c7 and the threshold scale
+    absdot (thresholds.tau_scalar's affine form with coefficients
+    tau_a, tau_b)."""
+    if d.dim() != 2 or w.dim() != 2 or d.shape[1] != w.shape[0]:
+        raise ValueError(f"abft_matmul_detect shapes {tuple(d.shape)} @ "
+                         f"{tuple(w.shape)}")
+    n, m = d.shape[0], w.shape[1]
+    if rb < 1 or cb < 1 or n % rb or m % cb:
+        raise ValueError(f"abft_matmul_detect: chunks ({rb}, {cb}) must "
+                         f"divide O's shape ({n}, {m})")
+    if tuple(c5.shape) != (n // rb, m // cb):
+        raise ValueError(f"abft_matmul_detect: checksums of shape "
+                         f"{tuple(c5.shape)} for {(n // rb, m // cb)} chunks")
+    if d.device.type == "cpu" and w.device.type == "cpu":
+        return abft_matmul_detect_ref(d, w, c5, c6, c7, absdot, rb, cb,
+                                      tau_a, tau_b, weighted)
+    if d.device.type != "cuda":
+        raise ValueError(f"abft_matmul_detect: unsupported device {d.device}")
+    return _launch_detect(d, w, c5, c6, c7, absdot, rb, cb, tau_a, tau_b,
+                          weighted)

@@ -17,6 +17,7 @@ import torch
 
 from . import ref as _ref
 from .abft_matmul import abft_matmul as _abft_matmul_kernel
+from .abft_matmul import abft_matmul_detect as _abft_matmul_detect_kernel
 from .checksum_reduce import checksum_reduce as _checksum_reduce_kernel
 
 F32 = torch.float32
@@ -101,6 +102,30 @@ def abft_matmul(d: torch.Tensor, w: torch.Tensor, *, bm: int = 256,
     else:
         gm, gn = _granularity(n, k, m, bm, bn, bk)
     return _abft_matmul_kernel(d, w, gm, gn)
+
+
+def abft_matmul_detect(d: torch.Tensor, w: torch.Tensor, c5, c6, c7, absdot,
+                       *, rb: int, cb: int, bk: int = 256, tau_a: float,
+                       tau_b: float, weighted: bool = True):
+    """Single-launch GEMM + CoC-D compare per (rb x cb) detection chunk:
+    (O, flag (nb, mb) int32, score (nb, mb) float32). c5/c6/c7/absdot are
+    the per-chunk checksum predictions of the raw product (locally
+    index-weighted, without bias adjustments).
+
+    On a CPU tensor it keeps the JAX package's rule and returns None where
+    the chunking is not a Pallas tile (rb, cb or the K tile under 8, a
+    non-dividing chunk, checksums of another grid), so the caller takes the
+    partials route exactly where the JAX package does. A CUDA tensor always
+    launches: the kernel masks any edge and its blocks need not be the
+    chunk."""
+    n, k = d.shape
+    m = w.shape[1]
+    if d.device.type != "cuda":
+        if (min(rb, cb, _tile(k, bk)) < 8 or n % rb or m % cb
+                or tuple(c5.shape) != (n // rb, m // cb)):
+            return None
+    return _abft_matmul_detect_kernel(d, w, c5, c6, c7, absdot, rb, cb,
+                                      tau_a, tau_b, weighted)
 
 
 def checksum_reduce(o: torch.Tensor, *, bm: int = 512, bn: int = 512

@@ -8,6 +8,7 @@ ceil(M/bn) column tiles.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -41,7 +42,7 @@ def checksum_reduce_ref(o: torch.Tensor, bm: int, bn: int) -> Tuple:
 def abft_matmul_ref(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int
                     ) -> Tuple[torch.Tensor, Tuple]:
     """fp32 matmul plus the same tile partials, taken from the fp32
-    product as the kernel takes them."""
+    product as the kernel takes them; O is rounded once to D's type."""
     acc = d.to(F32) @ w.to(F32)
     colsum, rowsum, sumsq, _ = checksum_reduce_ref(acc, bm, bn)
     return acc.to(d.dtype), (colsum, rowsum, sumsq, bm, bn)
@@ -96,3 +97,31 @@ def chunk_sums_ref(o: torch.Tensor, rb: int, cb: int):
                                                       device=dev))
     sumsq = torch.einsum("arbc,arbc->ab", o4, o4)
     return s5, s6, s7, sumsq
+
+
+def abft_matmul_detect_ref(d: torch.Tensor, w: torch.Tensor, c5, c6, c7,
+                           absdot, rb: int, cb: int, tau_a: float,
+                           tau_b: float, weighted: bool = True):
+    """(O, flag, score) of abft_matmul_detect: the fp32 product, its
+    per-chunk s5/s6/s7/sumsq at chunk-local index weights, then the CoC-D
+    compare against c5/c6/c7 with tau5 = tau_a*sqrt(sumsq) +
+    tau_b*absdot + 1e-30 (the weighted invariants' taus times rb-1 and
+    cb-1). NaN/Inf on either side flags the chunk with score inf."""
+    acc = d.to(F32) @ w.to(F32)
+    s5, s6, s7, sumsq = chunk_sums_ref(acc, rb, cb)
+    tau5 = (tau_a * torch.sqrt(torch.clamp(sumsq, min=0.0))
+            + tau_b * absdot.to(F32) + 1e-30)
+    pairs = [(c5, s5, tau5)]
+    if weighted:
+        pairs += [(c6, s6, tau5 * float(max(rb - 1, 1))),
+                  (c7, s7, tau5 * float(max(cb - 1, 1)))]
+    flag = torch.zeros(s5.shape, dtype=torch.bool, device=d.device)
+    score = torch.zeros(s5.shape, dtype=F32, device=d.device)
+    for c, s, t in pairs:
+        c = c.to(F32)
+        bad = ~(torch.isfinite(c) & torch.isfinite(s))
+        diff = torch.abs(c - s)
+        flag |= bad | (diff > t)
+        score = torch.maximum(score, torch.where(
+            bad, torch.full_like(score, math.inf), diff / t))
+    return acc.to(d.dtype), flag.to(torch.int32), score

@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the reduced CNN slice through the kernels. Every test here is
-marked `gpu` and skips on a host without a CUDA card; the file needs no
-JAX, so it runs on the GPU host as it is:
+version, and the reduced CNN and serving slices through the kernels.
+Every test here is marked `gpu` and skips on a host without a CUDA card;
+the file needs no JAX, so it runs on the GPU host as it is:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -152,3 +152,137 @@ def test_slice_on_card(cuda_device):
     ref = to_np(l_cpu)
     np.testing.assert_allclose(to_np(out["per_layer"]), ref, rtol=1e-4,
                                atol=1e-4 * (float(np.abs(ref).max()) + 1))
+
+
+# --------------------------------------------------------------------------
+# abft_matmul_detect and bf16 operands
+# --------------------------------------------------------------------------
+
+def _chunk_checksums(d, w, rb, cb):
+    """Exact per-chunk c5/c6/c7/absdot of the raw product (fp32)."""
+    d32, w32 = d.float(), w.float()
+    return [*tref.chunk_sums_ref(d32 @ w32, rb, cb)[:3],
+            tref.chunk_sums_ref(d32.abs() @ w32.abs(), rb, cb)[0]]
+
+
+# the serving path's shapes (decode 8 rows, prefill 128; wq/wk, down and
+# the tied head read in place), the smoke model's, and row chunks smaller
+# than the 64-row block tile
+DETECT_CASES = [(8, 960, 960, 8, 960, False), (8, 960, 320, 8, 320, False),
+                (8, 2560, 960, 8, 960, False), (8, 960, 49152, 8, 1024, True),
+                (128, 960, 2560, 128, 640, False),
+                (128, 960, 49152, 128, 1024, True),
+                (16, 64, 32, 16, 32, False), (2, 64, 96, 2, 48, False),
+                (40, 72, 96, 8, 48, False), (96, 72, 80, 32, 16, True)]
+
+
+def test_kernel_tiling_is_read_from_the_source(cuda_device):
+    """The wrappers size their buffers from the CUDA source's own tiling
+    rule: 16 x 32 for N <= 16, else 64 x 64, and a detect segment that
+    divides both the tile's width and cb."""
+    assert TAM.kernel_tiling(8) == (16, 32, 0)
+    assert TAM.kernel_tiling(16, 960) == (16, 32, 32)
+    assert TAM.kernel_tiling(17, 640) == (64, 64, 64)
+    assert TAM.kernel_tiling(128, 48) == (64, 64, 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,m,rb,cb,transposed", DETECT_CASES)
+def test_abft_matmul_detect_kernel_on_card(cuda_device, n, k, m, rb, cb,
+                                           transposed, dtype):
+    """Flags exactly equal to the plain version's, scores and O allclose,
+    O bitwise equal to abft_matmul's, and a shifted c5 flags exactly its
+    chunk. A score is |c - s| / tau: the two versions sum s in other
+    orders, and the threshold model prices that reassociation noise at
+    about tau / tau_factor, so clean scores agree to 1e-2 (the flags,
+    which decide, agree exactly)."""
+    from repro_torch.core import thresholds as TTH
+    d = torch.as_tensor(normal(n, (n, k))).to(cuda_device, dtype)
+    if transposed:
+        w = torch.as_tensor(normal(m, (m, k)) * k ** -0.5).to(
+            cuda_device, dtype).T
+    else:
+        w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(
+            cuda_device, dtype)
+    cs = _chunk_checksums(d, w, rb, cb)
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, dtype, 32.0)
+    o_p, _ = TAM.abft_matmul(d, w, 8, 8)
+    for tamper in (False, True):
+        c5 = cs[0].clone()
+        if tamper:
+            tau5 = tau_a * float(torch.sqrt((o_p.float() ** 2).reshape(
+                n // rb, rb, m // cb, cb).sum(dim=(1, 3)))[-1, 0]) \
+                + tau_b * float(cs[3][-1, 0])
+            c5[-1, 0] += 10.0 * tau5
+        before = TAM.DETECT_LAUNCHES
+        o, flag, score = TAM.abft_matmul_detect(d, w, c5, *cs[1:], rb, cb,
+                                                tau_a, tau_b)
+        torch.cuda.synchronize()
+        assert TAM.DETECT_LAUNCHES == before + 1
+        o_r, flag_r, score_r = tref.abft_matmul_detect_ref(
+            d, w, c5, *cs[1:], rb, cb, tau_a, tau_b)
+        assert torch.equal(flag, flag_r)
+        assert int(flag.sum()) == int(tamper)
+        if tamper:
+            assert int(flag[-1, 0]) == 1
+        assert_close(score, score_r, 1e-4, 1e-2, "score")
+        assert_close(o.float(), o_r.float(), 1e-2 if dtype != torch.float32
+                     else 1e-5, 1e-4 * k ** 0.5, "O")
+        assert torch.equal(o, o_p), "detect and partials kernels round O " \
+            "differently"
+
+
+@pytest.mark.parametrize("shape", [(8, 960, 2560), (128, 2560, 960),
+                                   (37, 520, 1000)])
+def test_abft_matmul_bf16_on_card(cuda_device, shape):
+    n, k, m = shape
+    d = torch.as_tensor(normal(1, (n, k))).to(cuda_device, torch.bfloat16)
+    w = torch.as_tensor(normal(2, (k, m)) * k ** -0.5).to(
+        cuda_device, torch.bfloat16)
+    gm, gn = tops._tile(n, 256), tops._tile(m, 256)
+    o, parts = TAM.abft_matmul(d, w, gm, gn)
+    o_r, parts_r = tref.abft_matmul_ref(d, w, gm, gn)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16
+    # one rounding of two fp32 sums that differ by reassociation only
+    ulp = o_r.float().abs() * 2.0 ** -7 + 1e-6
+    assert bool(((o.float() - o_r.float()).abs() <= ulp).all())
+    for a, b, name in zip(parts[:3], parts_r[:3],
+                          ("colsum", "rowsum", "sumsq")):
+        assert a.shape == b.shape, name
+        assert_close(a, b, 1e-5, 1e-3 * k ** 0.5, name)
+
+
+def test_serving_slice_on_card(cuda_device):
+    """A two-layer bf16 SmolLM-360M twin served on the card through the
+    kernels: zero clean flags, every protected site of every deferred
+    forward on abft_matmul_detect (15 per forward) and of every per_layer
+    forward on abft_matmul, and the same tokens in both modes."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("smollm-360m-smoke").replace(dtype="bfloat16")
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=4, seq=32, device=cuda_device))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 9, 12, 7)]
+    tokens = {}
+    for mode in ("deferred", "per_layer"):
+        TAM.LAUNCHES = TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+        sess = ProtectedSession(params, cfg, plan, slots=4, max_len=32,
+                                correction=mode, device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=6) for p in prompts]
+        report = sess.run()
+        c = report["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        assert c["faults_detected"] == 0 and report["completed"] == 4
+        if mode == "deferred":
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (15 * forwards, 0)
+            assert TW.HOST_READS == forwards
+        else:
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (0, 15 * forwards)
+            assert TW.HOST_READS == 15 * forwards
+        tokens[mode] = [sess.tokens_for(r) for r in rids]
+    assert tokens["deferred"] == tokens["per_layer"]

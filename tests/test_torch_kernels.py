@@ -1,4 +1,5 @@
-"""The port's kernels (repro_torch.kernels) against the JAX package's.
+"""The port's kernels (repro_torch.kernels) against the JAX package's:
+abft_matmul, abft_matmul_detect and checksum_reduce.
 
 On this CPU host every wrapper takes its plain PyTorch version; they are
 held against repro.kernels.ops' Pallas kernels in interpret mode, shape for
@@ -19,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import checksums as JC  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import checksums as TC  # noqa: E402
+from repro_torch.kernels import abft_matmul as TAM  # noqa: E402
 from repro_torch.kernels import checksum_reduce as TCR  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
@@ -180,3 +182,121 @@ def test_conv2d_ref_matches_jax_and_the_conv(stride, padding, groups):
     conv = TC.conv2d(torch.as_tensor(d), torch.as_tensor(w), stride,
                      padding, groups)
     assert_close(got, conv, 1e-5, 1e-4, "vs F.conv2d")
+
+
+# --------------------------------------------------------------------------
+# abft_matmul_detect: the GEMM with the CoC-D compare in its epilogue
+# --------------------------------------------------------------------------
+
+# tests/test_kernels.py's shape, then the smoke model's sites at a 16-row
+# prefill: wq/wk (K 64 -> 96 / 32 columns, chunks 48 / 32), down (K 96)
+# and the tied head (512 columns, chunk 64)
+DETECT_SHAPES = [(32, 64, 96, 16, 48), (16, 64, 96, 16, 48),
+                 (16, 64, 32, 16, 32), (16, 96, 64, 16, 64),
+                 (16, 64, 512, 16, 64)]
+DETECT_DTYPES = {"float32": (jnp.float32, torch.float32),
+                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _detect_case(n, k, m, rb, cb, jdt):
+    """Operands in the working type and their exact per-chunk checksums
+    (tests/test_kernels.py's oracle, in numpy)."""
+    d = jnp.asarray(normal(n + k, (n, k))).astype(jdt)
+    w = jnp.asarray(normal(k + m, (k, m))).astype(jdt)
+    d32 = np.asarray(d.astype(jnp.float32))
+    w32 = np.asarray(w.astype(jnp.float32))
+    oc = (d32 @ w32).reshape(n // rb, rb, m // cb, cb)
+    c5 = oc.sum(axis=(1, 3))
+    c6 = np.einsum("arbc,r->ab", oc, np.arange(rb, dtype=np.float32))
+    c7 = np.einsum("arbc,c->ab", oc, np.arange(cb, dtype=np.float32))
+    absdot = (np.abs(d32) @ np.abs(w32)).reshape(oc.shape).sum(axis=(1, 3))
+    return d, w, [x.astype(np.float32) for x in (c5, c6, c7, absdot)]
+
+
+def _to_torch(x):
+    """A jax array as a torch tensor, bit for bit (bf16 through uint16)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16).copy()
+                                ).view(torch.bfloat16)
+    return torch.as_tensor(a.copy())
+
+
+@pytest.mark.parametrize("dtype", list(DETECT_DTYPES))
+@pytest.mark.parametrize("shape", DETECT_SHAPES)
+def test_abft_matmul_detect_matches_jax(shape, dtype):
+    """The plain version of the detect kernel against the JAX package's
+    Pallas kernel in interpret mode: clean checksums (no flag) and c5 of
+    one chunk shifted (that chunk alone flags). Flags exactly equal;
+    scores and O within rtol 1e-5, atol 1e-4*sqrt(K) (bf16: O within one
+    bf16 ulp)."""
+    from repro.core import thresholds as JTH
+    n, k, m, rb, cb = shape
+    jdt, tdt = DETECT_DTYPES[dtype]
+    d, w, cs = _detect_case(n, k, m, rb, cb, jdt)
+    tau_a, tau_b = JTH.tau_scalar_coeffs(k, jdt, 64.0)
+    for tamper in (0.0, 5e3):
+        c5 = cs[0].copy()
+        c5[n // rb - 1, 0] += tamper
+        o_j, f_j, s_j = jops.abft_matmul_detect(
+            d, w, jnp.asarray(c5), *map(jnp.asarray, cs[1:]), rb=rb, cb=cb,
+            tau_a=tau_a, tau_b=tau_b, interpret=True)
+        o_t, f_t, s_t = tops.abft_matmul_detect(
+            _to_torch(d), _to_torch(w), torch.as_tensor(c5),
+            *map(torch.as_tensor, cs[1:]), rb=rb, cb=cb, tau_a=tau_a,
+            tau_b=tau_b)
+        assert o_t.dtype == tdt
+        np.testing.assert_array_equal(f_t.numpy(), np.asarray(f_j))
+        assert int(f_t.sum()) == (1 if tamper else 0)
+        if tamper:
+            assert int(f_t[n // rb - 1, 0]) == 1
+        assert_close(s_t, s_j, 1e-5, 1e-4 * k ** 0.5, "score")
+        if tdt == torch.float32:
+            assert_close(o_t, o_j, 1e-5, 1e-4 * k ** 0.5, "O")
+        else:
+            o_j32 = np.asarray(o_j.astype(jnp.float32))
+            ulp = np.abs(o_j32) * 2.0 ** -7 + 1e-30
+            assert np.all(np.abs(o_t.float().numpy() - o_j32) <= ulp)
+
+
+@pytest.mark.parametrize("n,k,m,rb,cb", [
+    (32, 64, 96, 4, 48),      # row chunk below the minimum tile
+    (32, 64, 96, 16, 36),     # column chunk that is no Pallas tile
+    (32, 12, 96, 16, 48),     # K tile below the minimum
+    (8, 64, 96, 8, 48),       # decode: 8 rows, tiles at the minimum
+    (2, 64, 96, 2, 48),       # the smoke session's 2-slot decode
+    (16, 64, 32, 16, 32)])
+def test_abft_matmul_detect_refusal_rule_matches_jax(n, k, m, rb, cb):
+    """On the CPU the port hands the same chunkings to the partials route
+    (None) as the JAX package does, shape for shape."""
+    d = np.zeros((n, k), np.float32)
+    w = np.zeros((k, m), np.float32)
+    z = np.zeros((n // rb, m // cb), np.float32)
+    got = tops.abft_matmul_detect(torch.as_tensor(d), torch.as_tensor(w),
+                                  *[torch.as_tensor(z)] * 4, rb=rb, cb=cb,
+                                  tau_a=1.0, tau_b=1.0)
+    want = jops.abft_matmul_detect(jnp.asarray(d), jnp.asarray(w),
+                                   *[jnp.asarray(z)] * 4, rb=rb, cb=cb,
+                                   tau_a=1.0, tau_b=1.0, interpret=True)
+    assert (got is None) == (want is None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_detect_reads_a_transposed_w_as_a_contiguous_one(dtype):
+    """The tied head's weight is the transposed view of the embedding
+    table: both kernels give the same results on it as on a contiguous
+    copy, and both round O identically."""
+    n, k, m, rb, cb = 16, 64, 512, 16, 64
+    d = torch.as_tensor(normal(1, (n, k))).to(dtype)
+    table = torch.as_tensor(normal(2, (m, k))).to(dtype)
+    wt = table.T
+    assert not wt.is_contiguous()
+    cs = [torch.as_tensor(x) for x in _detect_case(
+        n, k, m, rb, cb, jnp.float32)[2]]
+    view = TAM.abft_matmul_detect(d, wt, *cs, rb, cb, 1e-3, 1e-6)
+    copy = TAM.abft_matmul_detect(d, wt.contiguous(), *cs, rb, cb, 1e-3,
+                                  1e-6)
+    for a, b in zip(view, copy):
+        assert torch.equal(a, b)
+    o, _ = TAM.abft_matmul(d, wt, 16, 64)
+    assert torch.equal(o, view[0])

@@ -13,6 +13,9 @@ import repro_torch  # noqa: E402
 from repro_torch import core as tcore  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.serving import ProtectedSession  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -56,6 +59,22 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
+def test_serving_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfigs.get("smollm-360m-smoke")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttf.init_params(cfg)
+    params = ttf.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcore.build_plan(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProtectedSession(params, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttf.params_from_numpy({"w": [1.0]})
+    with pytest.raises(ValueError, match="params lie on"):
+        ProtectedSession(params, cfg, device="meta")
+
+
 def test_forward_rejects_tensors_off_its_device():
     cfg = tcnn.alexnet(0.12)
     params = tcnn.init_cnn(cfg, device="cpu")
@@ -65,17 +84,21 @@ def test_forward_rejects_tensors_off_its_device():
 
 
 def test_fp32_ieee_scope_restores_the_flags():
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    mm = torch.backends.cuda.matmul
+    saved = (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction)
     torch.backends.cudnn.allow_tf32 = True
+    mm.allow_bf16_reduced_precision_reduction = True
     try:
         with repro_torch.fp32_ieee():
             assert not torch.backends.cudnn.allow_tf32
-            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not mm.allow_tf32
+            assert not mm.allow_bf16_reduced_precision_reduction
         assert torch.backends.cudnn.allow_tf32
+        assert mm.allow_bf16_reduced_precision_reduction
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        (torch.backends.cudnn.allow_tf32, mm.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
 
 
 def test_missing_nvcc_is_an_error(monkeypatch, tmp_path):
@@ -95,8 +118,10 @@ def test_each_kernel_source_exports_what_its_wrapper_calls(name):
     assert "Replaces: src/repro/kernels/" in head
     assert "Bound on an H100" in head
     wrapper = (PORT / "kernels" / f"{name}.py").read_text()
-    entry = re.search(r"\"(repro_\w+_f32)\"", wrapper).group(1)
-    assert re.search(rf'extern "C" int {entry}\(', src), entry
+    entries = re.findall(r"\"(repro_\w+)\"", wrapper)
+    assert entries
+    for entry in entries:
+        assert re.search(rf'extern "C" int {entry}\(', src), entry
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == \
         sorted(_build.SOURCES)
 

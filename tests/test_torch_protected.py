@@ -156,11 +156,27 @@ def test_fused_matmul_matches_jax(mm_case):
 
 
 def test_fused_detect_only_bias_free_site_raises(mm_case):
+    """The fused detect-only path of a bias-free site (once a raise, now
+    the abft_matmul_detect kernel; here its plain version) gives the JAX
+    package's detect-only verdict on its jnp route, clean and with one
+    weight element changed after the checksums were encoded."""
     d, w, _, _ = mm_case
-    cfg = tcore.DEFAULT_CONFIG.replace(use_fused_kernel=True)
-    with pytest.raises(NotImplementedError, match="2.3"):
-        tcore.protected_matmul(torch.as_tensor(d), torch.as_tensor(w),
-                               cfg=cfg, mode="detect_only")
+    wck_t = tcore.weight_checksums_matmul(torch.as_tensor(w), 20)
+    wck_j = jcore.weight_checksums_matmul(jnp.asarray(w), 20)
+    run_j = jax.jit(lambda d, w: jcore.protected_matmul(
+        d, w, wck=wck_j, cfg=jcore.DEFAULT_CONFIG.replace(**MM_CFG),
+        mode="detect_only"))
+    cfg = tcore.DEFAULT_CONFIG.replace(use_fused_kernel=True, **MM_CFG)
+    for tamper in (0.0, 40.0):
+        wx = w.copy()
+        wx[3, 5] += tamper
+        out_t, ev_t = tcore.protected_matmul(
+            torch.as_tensor(d), torch.as_tensor(wx), wck=wck_t, cfg=cfg,
+            mode="detect_only")
+        out_j, ev_j = run_j(jnp.asarray(d), jnp.asarray(wx))
+        assert isinstance(ev_t, TT.DetectEvidence)
+        assert int(ev_t.flag) == int(ev_j.flag) == (1 if tamper else 0)
+        assert_close(out_t, out_j, 1e-5, 1e-4 * KM ** 0.5, "O")
 
 
 def test_coc_miscorrection_regression_twin():
@@ -298,3 +314,33 @@ def test_checksum_encodes_match_jax(conv_case, mm_case):
     for oo, want_flag in ((o, False), (_inject(o, "single", seed=5), True)):
         ss = TC.output_sums_conv(torch.as_tensor(oo))
         assert bool(TS.detect(cs, ss, tau, tau * N, tau * M)) is want_flag
+
+
+def test_bf16_fix_restores_the_located_element():
+    """A CoC fix of a bf16 output carries the chunk's summed rounding noise
+    in the JAX package (ROADMAP 3.2: here ~0.69 on a clean element of
+    0.96); the port recomputes the element the scheme located, so the
+    corrected output is the clean product's rounding, bitwise, with the
+    JAX package's verdict."""
+    n, k, m = 128, 960, 960
+    d = normal(21, (n, k))
+    w = normal(22, (k, m), k ** -0.5)
+    dj = jnp.asarray(d).astype(jnp.bfloat16)
+    wj = jnp.asarray(w).astype(jnp.bfloat16)
+    clean_j = jnp.dot(dj, wj, preferred_element_type=jnp.float32
+                      ).astype(jnp.bfloat16)
+    cfg_j = jcore.DEFAULT_CONFIG.replace(tau_factor=31.0)
+    fixed_j, rep_j = jax.jit(lambda d, w, o: jcore.protect_matmul_output(
+        d, w, o, cfg=cfg_j))(dj, wj, clean_j.at[n - 3, 17].add(1e3))
+    gap_j = float(jnp.max(jnp.abs(fixed_j.astype(jnp.float32)
+                                  - clean_j.astype(jnp.float32))))
+    dt = torch.as_tensor(d).to(torch.bfloat16)
+    wt = torch.as_tensor(w).to(torch.bfloat16)
+    clean = (dt.float() @ wt.float()).to(torch.bfloat16)
+    bad = clean.clone()
+    bad[n - 3, 17] += 1e3
+    fixed, rep = tcore.protect_matmul_output(
+        dt, wt, bad, cfg=tcore.DEFAULT_CONFIG.replace(tau_factor=31.0))
+    assert verdict(rep) == verdict(rep_j) == (1, TT.COC, 0)
+    assert gap_j > 0.1
+    assert torch.equal(fixed, clean)
