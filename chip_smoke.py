@@ -11,14 +11,18 @@ Phases, each fatal on failure:
      its median time (CUDA events), the plain version's time, one PyTorch
      library call's time where one computes the same function, and the
      bound (the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s fp32);
+     checksum_reduce also on the same O rounded to bf16;
   3b. the serving path's kernels at every GEMM shape of a SmolLM-360M
-     decode step (8 rows) and 128-row prefill, in bf16 (the tied head's
-     weight read in place as the transposed embedding table):
+     decode step (8 rows) and of every prefill bucket (16, 32, 64, 128
+     rows), in bf16 (the tied head's weight read in place as the
+     transposed embedding table), with the tiling the CUDA source chose:
      abft_matmul_detect against its plain version (flags exact, clear on
-     exact checksums, exactly one chunk on a c5 shifted by 10 tau), its O
-     bitwise equal to abft_matmul's, abft_matmul on bf16 against its plain
-     version; times beside torch.matmul and the bound (bf16 peak 989
-     TFLOP/s; the fp32-FMA bound beside it);
+     exact checksums, exactly one chunk on a c5, c6 or c7 shifted by 10
+     tau), its O bitwise equal to abft_matmul's, abft_matmul on bf16
+     against its plain version; at 8 and 128 rows times beside
+     torch.matmul and the bound (bf16 peak 989 TFLOP/s; the fp32-FMA
+     bound beside it); the host us of one call of each wrapper at the
+     decode wq shape;
   4. the slice: build_plan + forward_cnn on that ResNet-18 in per_layer
      and deferred mode with the kernels pinned (use_fused_kernel=True):
      zero clean flags, bitwise clean-path contracts, allclose to the
@@ -83,6 +87,10 @@ SERVE_SITES = (("wq/wo", 960, 960, False, 64), ("wk/wv", 960, 320, False, 64),
                ("gate/up", 960, 2560, False, 64),
                ("down", 2560, 960, False, 32),
                ("head", 960, 49152, True, 1))
+# the row counts the session gives them: a decode step's slots and the
+# prefill buckets; all are checked, the first and last also timed
+SERVE_ROWS = (SLOTS, 16, 32, 64, 128)
+TIMED_ROWS = (SLOTS, 128)
 
 
 def log(*a):
@@ -225,8 +233,22 @@ def check_checksum_reduce(cfg, gen, report):
                 fail(f"conv_detect_sums {shape} {name}: max |err| {err:.3g} "
                      f"> {tol:.3g}")
             errs["detect_" + name] = err
-        err_all = max(err_all, *(errs[k] for k in ("colsum", "rowsum",
-                                                   "sumsq", "wcolsum")))
+        # the same O rounded to bf16: the kernel reads it as it is and sums
+        # in fp32, as the plain version does after its cast
+        o2b = o2.to(torch.bfloat16)
+        got = CR.checksum_reduce(o2b, bm, bn, segments=n, rowsum=True)
+        want = CR.checksum_reduce_plain(o2b, bm, bn, segments=n, rowsum=True)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("colsum", "rowsum", "sumsq", "wcolsum"),
+                              got, want):
+            err = max_err(g, w)
+            tol = 1e-5 * (float(w.abs().max()) + 1.0)
+            if g.shape != w.shape or not err <= tol:
+                fail(f"checksum_reduce bf16 {shape} {name}: max |err| "
+                     f"{err:.3g} > {tol:.3g}")
+            errs["bf16_" + name] = err
+        err_all = max(err_all, *(v for k, v in errs.items()
+                                 if not k.startswith("detect")))
         # the main path's launch (rowsum skipped), on inputs cold in L2
         args = copies([o2])
         ms = time_device(lambda t: CR.checksum_reduce(
@@ -246,6 +268,8 @@ def check_checksum_reduce(cfg, gen, report):
         log(f"  checksum_reduce conv{layer} O{shape} x{count} tiles "
             f"({bm},{bn}): ms {ms:.4f} plain {plain_ms:.4f} bound {b:.4f} ({by}) max|err| partials "
             f"{max(errs[k] for k in ('colsum', 'rowsum', 'sumsq', 'wcolsum')):.3g}"
+            f" (bf16 O "
+            f"{max(v for k, v in errs.items() if k.startswith('bf16')):.3g})"
             f" detect sums "
             f"{max(v for k, v in errs.items() if k.startswith('detect')):.3g}")
         tot["ms"] += count * ms
@@ -363,6 +387,39 @@ def within_bf16_ulp(a, b) -> bool:
     return bool(((a32 - b32).abs() <= b32.abs() * 2.0 ** -7 + 1e-6).all())
 
 
+def wrapper_host_us(AM, reps: int = 200, rounds: int = 5) -> dict:
+    """Host microseconds of one call of each bf16 wrapper of the kernel
+    module AM at the decode wq shape, (8 x 960) @ (960 x 960): `reps`
+    calls back to back without a synchronize (issue time: checks,
+    allocations, the ctypes launch), median over `rounds`."""
+    import torch
+    from repro_torch import fp32_ieee
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
+    d = torch.randn((8, 960), generator=gen, device="cuda").to(bf16)
+    w = (torch.randn((960, 960), generator=gen, device="cuda")
+         * 960 ** -0.5).to(bf16)
+    cs = [torch.randn((1, 1), generator=gen, device="cuda") for _ in range(4)]
+    fns = {"abft_matmul_detect": lambda: AM.abft_matmul_detect(
+               d, w, *cs, 8, 960, 1e-3, 1e-3),
+           "abft_matmul": lambda: AM.abft_matmul(d, w, 8, 256)}
+    out = {}
+    with torch.no_grad(), fp32_ieee():
+        for name, fn in fns.items():
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            per = []
+            for _ in range(rounds):
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                per.append((time.perf_counter() - t0) * 1e6 / reps)
+                torch.cuda.synchronize()
+            out[name] = statistics.median(per)
+    return out
+
+
 def check_serving_kernels(gen, report):
     """abft_matmul_detect against its plain version, and abft_matmul on
     bf16 operands, at every GEMM shape of a decode step (8 rows) and a
@@ -383,9 +440,9 @@ def check_serving_kernels(gen, report):
     tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
                "flops": 0.0, "mm_ms": 0.0, "mm_plain_ms": 0.0,
                "mm_bytes": 0.0, "mm_flops": 0.0}
-           for n in (SLOTS, 128)}
+           for n in TIMED_ROWS}
     with torch.no_grad(), fp32_ieee():
-        for n in (SLOTS, 128):
+        for n in SERVE_ROWS:
             for label, k, m, transposed, count in SERVE_SITES:
                 d = torch.randn((n, k), generator=gen, device="cuda").to(bf16)
                 store = (torch.randn((m, k) if transposed else (k, m),
@@ -395,6 +452,8 @@ def check_serving_kernels(gen, report):
                 w = view(store)
                 rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
                 bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
+                tiling = AM.kernel_tiling(n, k, m, bf16, cb)
+                blocks = tiling.tiles(n, m) * tiling.splits
                 cs, sq = exact_chunk_checksums(d, w, rb, cb)
                 ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
                 o, flag, score = AM.abft_matmul_detect(d, w, *cs, rb, cb, ta, tb)
@@ -461,6 +520,22 @@ def check_serving_kernels(gen, report):
                              f"{float(score_tr[-1, -1]):.6g}")
                 err_det = max(err_det, e_s, e_t, max_err(o, o_r))
                 err_mm = max(err_mm, max_err(o_mm, o_mr), e_p)
+                tile_txt = (f"tile {tiling.tm}x{tiling.tn} "
+                            f"{'O^T = W^T D^T' if tiling.swapped else 'O = D W'}"
+                            f", {tiling.splits} splits, {blocks} blocks")
+                row = {"site": label, "shape": [n, k, m], "chunks": [rb, cb],
+                       "w_transposed": transposed, "per_forward": count,
+                       "tiling": {**tiling._asdict(), "blocks": blocks},
+                       "clean_score": float(score.max()),
+                       "max_abs_err": {"score": e_s, "tampered_score": e_t,
+                                       "o": max_err(o, o_r)}}
+                rows.append(row)
+                if n not in TIMED_ROWS:
+                    log(f"  {what} chunks ({rb},{cb}): {tile_txt}; clean "
+                        f"score {float(score.max()):.3g} (err {e_s:.3g}, "
+                        f"limit {noise:.3g}); shifted c5/c6/c7 score err "
+                        f"{e_t:.3g}")
+                    continue
                 args = copies([d, store] + cs)
                 ms = time_device(lambda a, b, *c: AM.abft_matmul_detect(
                     a, view(b), *c, rb, cb, ta, tb), args)
@@ -483,20 +558,15 @@ def check_serving_kernels(gen, report):
                             + 4.0 * (pm * m + n * pn + pm * pn))
                 mm_flops = 2.0 * n * k * m + 4.0 * n * m
                 mm_b, mm_by = bound_ms(mm_bytes, mm_flops, BF16_FLOPS_PER_S)
-                rows.append({"site": label, "shape": [n, k, m], "chunks": [rb, cb],
-                             "w_transposed": transposed, "per_forward": count,
-                             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                             "abft_matmul_ms": mm_ms,
-                             "abft_matmul_plain_ms": mm_plain,
-                             "abft_matmul_bound_ms": mm_b,
-                             "abft_matmul_bound_by": mm_by,
-                             "bound_ms": b, "bound_by": by,
-                             "bound_fp32_fma_ms": b32,
-                             "clean_score": float(score.max()),
-                             "max_abs_err": {"score": e_s,
-                                             "tampered_score": e_t,
-                                             "o": max_err(o, o_r)}})
-                log(f"  {what} chunks ({rb},{cb}) x{count}: detect ms {ms:.4f} "
+                row.update({"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": lib_ms, "abft_matmul_ms": mm_ms,
+                            "abft_matmul_plain_ms": mm_plain,
+                            "abft_matmul_bound_ms": mm_b,
+                            "abft_matmul_bound_by": mm_by,
+                            "bound_ms": b, "bound_by": by,
+                            "bound_fp32_fma_ms": b32})
+                log(f"  {what} chunks ({rb},{cb}) x{count}: {tile_txt}; "
+                    f"detect ms {ms:.4f} "
                     f"plain {plain_ms:.4f} torch.matmul {lib_ms:.4f} "
                     f"bound {b:.4f} ({by}; fp32-FMA {b32:.4f}); abft_matmul "
                     f"{mm_ms:.4f} plain {mm_plain:.4f} bound {mm_b:.4f} "
@@ -526,8 +596,13 @@ def check_serving_kernels(gen, report):
             f"{t['bytes'] / 1e6:.1f} MB; abft_matmul {t['mm_ms']:.4f} plain "
             f"{t['mm_plain_ms']:.4f} bound {t['mm_bound_ms']:.4f} "
             f"({t['mm_bound_by']})")
+    host = wrapper_host_us(AM)
+    log(f"  host us per wrapper call at the decode wq shape (8x960)@(960x960):"
+        f" abft_matmul_detect {host['abft_matmul_detect']:.1f}, abft_matmul "
+        f"{host['abft_matmul']:.1f}")
     report["serving_kernels"] = {"per_shape": rows, "decode_step": tot[SLOTS],
-                                 "prefill_128": tot[128]}
+                                 "prefill_128": tot[128],
+                                 "wrapper_host_us": host}
     dec = tot[SLOTS]
     src = "src/repro_torch/kernels/csrc/abft_matmul.cu"
     # both rows' times are per decode step (225 launches over its shapes)

@@ -14,20 +14,31 @@ CoC-D compare itself and returns one flag and one score per (rb x cb)
 detection chunk.
 
 On a CUDA tensor both launch the CUDA kernels in csrc/abft_matmul.cu,
-which share one mainloop (so they round O identically); its block tile
-(64 x 64, or 16 x 32 for N <= 16) is chosen by the source, which the
-wrappers ask through `repro_abft_tiling`, and a coarser partial granularity
-is summed from the tile's. Operands are float32 or bfloat16 (O in D's type, every sum
-in fp32). W is (K, M) row-major or the transposed view of an (M, K)
-row-major tensor (the tied LM head), read in place. On a CPU tensor each
-runs its plain version (ref.py). `LAUNCHES` and `DETECT_LAUNCHES` count the
-kernels' launches.
+which share one mainloop per operand type (so they round O identically):
+bf16 operands run a wgmma (tensor-core) mainloop that computes O^T = W^T
+D^T and splits K over the blocks of a cluster when the tiles cannot fill
+the card; float32 ones keep fp32 FMA. The tiling (block tile, split
+count) is chosen by the source from (N, K, M, dtype); the wrappers ask for
+it through `repro_abft_tiling`, size their buffers from it, and sum a
+coarser partial granularity from the tile's. Operands are float32 or
+bfloat16 (O in D's type, every sum in fp32). W is (K, M) row-major or the
+transposed view of an (M, K) row-major tensor (the tied LM head), read in
+place. On a CPU tensor each runs its plain version (ref.py). `LAUNCHES`
+and `DETECT_LAUNCHES` count the kernels' launches.
+
+On bf16 the detect entry point is one launch: the last block to finish a
+detection chunk's tiles runs its compare. The tiles of a chunk meet on
+int32 counters that start at zero and that the kernel leaves zero (a
+memset per call would add a launch's latency to a kernel of a few µs).
+So that no two launches use one set at the same time, launches take the
+counters of their stream, and launches captured in a CUDA graph those of
+their capture, zeroed when each replay starts.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -44,18 +55,69 @@ def _pow2(x: int) -> bool:
     return x >= 1 and x & (x - 1) == 0
 
 
+class Tiling(NamedTuple):
+    """How the CUDA source launches an (N, K) @ (K, M) product: block tile
+    tm rows x tn columns of O, the detect pass's row segment (0 without a
+    chunk width), the K split (blocks per tile) and whether the blocks
+    compute O^T = W^T D^T."""
+    tm: int
+    tn: int
+    seg: int
+    splits: int
+    swapped: bool
+
+    def tiles(self, n: int, m: int) -> int:
+        return -(-n // self.tm) * -(-m // self.tn)
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_tiling(n: int, cb: int = 0) -> Tuple[int, int, int]:
-    """(tm, tn, seg) of an N-row product as the CUDA source chooses it:
-    the block tile, and for a detection chunk width cb > 0 the column
-    segment the detect pass sums rows over (0 when cb is 0)."""
+def kernel_tiling(n: int, k: int, m: int, dtype: torch.dtype,
+                  cb: int = 0) -> Tiling:
+    """The Tiling of an (n, k) @ (k, m) product of `dtype` operands as the
+    CUDA source chooses it; seg is for a detection chunk width cb > 0."""
+    if dtype not in DTYPES:
+        raise NotImplementedError(f"abft_matmul: no kernel for {dtype}")
     fn = _build.function("abft_matmul", "repro_abft_tiling",
-                         [ctypes.c_int] * 2
-                         + [ctypes.POINTER(ctypes.c_int)] * 3)
-    out = [ctypes.c_int() for _ in range(3)]
-    if fn(n, cb, *(ctypes.byref(x) for x in out)):
-        raise ValueError(f"abft_matmul: no tiling for n={n}, cb={cb}")
-    return tuple(x.value for x in out)
+                         [ctypes.c_int] * 5
+                         + [ctypes.POINTER(ctypes.c_int)] * 5)
+    out = [ctypes.c_int() for _ in range(5)]
+    if fn(n, k, m, DTYPES[dtype], cb, *(ctypes.byref(x) for x in out)):
+        raise ValueError(f"abft_matmul: no tiling for n={n}, k={k}, m={m}, "
+                         f"{dtype}, cb={cb}")
+    tm, tn, seg, splits, swapped = (x.value for x in out)
+    return Tiling(tm, tn, seg, splits, bool(swapped))
+
+
+# chunk counters by (device, stream) for eager launches, and by (device,
+# stream, capture id) for launches captured in a graph, kept until the
+# capture has ended
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+_CAPTURED: Dict[tuple, torch.Tensor] = {}
+
+
+def _chunk_counters(dev: torch.device, chunks: int) -> torch.Tensor:
+    """Zeroed int32 chunk counters for a bf16 detect launch on `dev`'s
+    current stream. Eager launches of one stream run in its order and
+    share its counters; a capture's launches get counters that the graph
+    zeroes when each replay starts (the zero fill is captured with them),
+    so a replay never meets an eager launch's or another graph's."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = _build.function("abft_matmul", "repro_capture_id",
+                         [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                          ctypes.POINTER(ctypes.c_ulonglong)])
+    capturing, capture = ctypes.c_int(), ctypes.c_ulonglong()
+    if fn(stream, ctypes.byref(capturing), ctypes.byref(capture)):
+        raise RuntimeError("abft_matmul_detect: cudaStreamGetCaptureInfo")
+    if capturing.value:
+        table, key = _CAPTURED, (dev, stream, capture.value)
+    else:
+        _CAPTURED.clear()
+        table, key = _COUNTERS, (dev, stream)
+    held = table.get(key)
+    if held is None or held.numel() < chunks:
+        held = torch.zeros(max(chunks, 4096), dtype=torch.int32, device=dev)
+        table[key] = held
+    return held
 
 
 def _operands(d: torch.Tensor, w: torch.Tensor, what: str):
@@ -88,14 +150,15 @@ def _launch(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int) -> Tuple:
         raise ValueError(f"partial tiles must be powers of two, got {bm, bn}")
     n, k = d.shape
     m = w.shape[1]
-    tm, tn, _ = kernel_tiling(n)
-    pbm, pbn = min(bm, tm), min(bn, tn)
+    t = kernel_tiling(n, k, m, d.dtype)
+    pbm, pbn = min(bm, t.tm), min(bn, t.tn)
     gm, gn = bm // pbm, bn // pbn
     rows_t, cols_t = -(-n // bm), -(-m // bn)
     dev = d.device
     # tiles past the edge of O are not written; when kernel partials are
     # summed into coarser ones they must read as zero
-    alloc = torch.zeros if gm > 1 or gn > 1 else torch.empty
+    alloc = torch.zeros if (gm > 1 and n % bm) or (gn > 1 and m % bn) \
+        else torch.empty
     o = torch.empty((n, m), dtype=d.dtype, device=dev)
     colsum = alloc((rows_t * gm, m), dtype=F32, device=dev)
     rowsum = alloc((n, cols_t * gn), dtype=F32, device=dev)
@@ -145,19 +208,24 @@ def _launch_detect(d, w, c5, c6, c7, absdot, rb, cb, tau_a, tau_b,
         if x.dtype != F32 or x.device != dev:
             raise ValueError("abft_matmul_detect: checksums must be float32 "
                              f"on {dev}, got {x.dtype} on {x.device}")
-    seg = kernel_tiling(n, cb)[2]
+    t = kernel_tiling(n, k, m, d.dtype, cb)
     o = torch.empty((n, m), dtype=d.dtype, device=dev)
-    part = torch.empty((3, n, m // seg), dtype=F32, device=dev)
+    part = torch.empty((3, n, m // t.seg), dtype=F32, device=dev)
+    # the bf16 route compares the chunks in the GEMM's own launch
+    counters = _chunk_counters(dev, (n // rb) * (m // cb)) \
+        if d.dtype == torch.bfloat16 else None
     flag = torch.empty((n // rb, m // cb), dtype=torch.int32, device=dev)
     score = torch.empty((n // rb, m // cb), dtype=F32, device=dev)
     fn = _build.function("abft_matmul", "repro_abft_matmul_detect",
                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                          + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2
-                         + [ctypes.c_int] + [ctypes.c_void_p] * 4)
+                         + [ctypes.c_int] + [ctypes.c_void_p] * 5)
     _build.launch(fn, dev, d.data_ptr(), w.data_ptr(), o.data_ptr(), dt,
                   layout, n, k, m, rb, cb, *(x.data_ptr() for x in chk),
                   float(tau_a), float(tau_b), int(bool(weighted)),
-                  part.data_ptr(), flag.data_ptr(), score.data_ptr())
+                  part.data_ptr(),
+                  None if counters is None else counters.data_ptr(),
+                  flag.data_ptr(), score.data_ptr())
     DETECT_LAUNCHES += 1
     return o, flag, score
 

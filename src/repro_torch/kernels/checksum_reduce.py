@@ -10,8 +10,9 @@ base row, wcolsum rebuilds any affine row weighting:
 which is how the conv detection path gets s6 and s7 from the flattened
 (N*M, E*E) view without a second pass (kernels.ops.conv_detect_sums).
 
-On a CUDA tensor this launches the CUDA kernel in csrc/checksum_reduce.cu;
-on a CPU tensor it runs the plain version below. `LAUNCHES` counts the
+On a CUDA tensor this launches the CUDA kernel in csrc/checksum_reduce.cu
+(O float32 or bfloat16, every sum in fp32); on a CPU tensor it runs the
+plain version below. `LAUNCHES` counts the
 kernel's launches.
 """
 from __future__ import annotations
@@ -26,6 +27,9 @@ from . import _build
 from .ref import _ceil_to, checksum_reduce_ref
 
 F32 = torch.float32
+# the kernel's C entry point for each type of O (the sums are fp32)
+SYMBOLS = {torch.float32: "repro_checksum_reduce_f32",
+           torch.bfloat16: "repro_checksum_reduce_bf16"}
 LAUNCHES = 0
 
 
@@ -50,9 +54,9 @@ def checksum_reduce_plain(o: torch.Tensor, bm: int, bn: int,
 def _launch(o: torch.Tensor, bm: int, bn: int, segments: int,
             rowsum: bool) -> Tuple:
     global LAUNCHES
-    if o.dtype != F32:
+    if o.dtype not in SYMBOLS:
         raise NotImplementedError(
-            f"checksum_reduce kernel takes float32, got {o.dtype}")
+            f"checksum_reduce kernel takes float32 or bfloat16, got {o.dtype}")
     if not o.is_contiguous():
         raise ValueError("checksum_reduce kernel needs a contiguous O")
     rows, cols = o.shape
@@ -64,7 +68,7 @@ def _launch(o: torch.Tensor, bm: int, bn: int, segments: int,
     sumsq = torch.empty((t, ptiles), dtype=F32, device=o.device)
     rs = torch.empty((rows, ptiles), dtype=F32, device=o.device) \
         if rowsum else None
-    fn = _build.function("checksum_reduce", "repro_checksum_reduce_f32",
+    fn = _build.function("checksum_reduce", SYMBOLS[o.dtype],
                          [ctypes.c_void_p] + [ctypes.c_int] * 5
                          + [ctypes.c_void_p] * 5)
     _build.launch(fn, o.device, o.data_ptr(), segments, seg_rows, cols,

@@ -3,7 +3,8 @@
 // Replaces: src/repro/kernels/checksum_reduce.py::_kernel (the Pallas TPU
 // kernel behind repro.kernels.ops.checksum_reduce / conv_detect_sums).
 //
-// Bound on an H100: device-memory bandwidth. The kernel reads O once and
+// Bound on an H100: device-memory bandwidth. The kernel reads O (float32
+// or bfloat16; every sum in fp32, as the TPU kernel casts its tile) once and
 // writes partials that are 1/bm and 1/bn of its size; there are ~4 flops
 // per element read, far below the card's ridge point. So O must be read
 // exactly once, with coalesced loads, and never copied: the JAX wrapper
@@ -29,6 +30,7 @@
 // carries only local row weights. A segment whose length is not a multiple
 // of bm ends in a ragged tile, masked like the ragged last column tile.
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 namespace {
 
@@ -39,8 +41,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-checksum_reduce_kernel(const float* __restrict__ o, int seg_rows, int cols,
+checksum_reduce_kernel(const T* __restrict__ o, int seg_rows, int cols,
                        int bm, int bn, int mtiles, int ptiles,
                        float* __restrict__ colsum, float* __restrict__ rowsum,
                        float* __restrict__ sumsq, float* __restrict__ wcolsum) {
@@ -54,7 +62,7 @@ checksum_reduce_kernel(const float* __restrict__ o, int seg_rows, int cols,
   const int rows = min(bm, seg_rows - r0);
   const int c0 = pt * bn;
   const int ncols = min(bn, cols - c0);
-  const float* base = o + ((size_t)seg * seg_rows + r0) * cols + c0;
+  const T* base = o + ((size_t)seg * seg_rows + r0) * cols + c0;
 
   const int tc = bn < kThreads ? bn : kThreads;  // column lanes
   const int groups = kThreads / tc;              // row groups per column
@@ -68,9 +76,9 @@ checksum_reduce_kernel(const float* __restrict__ o, int seg_rows, int cols,
     const int c = it * tc + lane;
     float cs = 0.f, ws = 0.f;
     if (active && c < ncols) {
-      const float* p = base + c;
+      const T* p = base + c;
       for (int r = grp; r < rows; r += groups) {
-        const float v = p[(size_t)r * cols];
+        const float v = to_f(p[(size_t)r * cols]);
         cs += v;
         ws += (float)r * v;
         sq += v * v;
@@ -104,29 +112,49 @@ checksum_reduce_kernel(const float* __restrict__ o, int seg_rows, int cols,
 
   if (rowsum != nullptr) {
     for (int r = warp; r < rows; r += kThreads / 32) {
-      const float* p = base + (size_t)r * cols;
+      const T* p = base + (size_t)r * cols;
       float s = 0.f;
-      for (int c = wl; c < ncols; c += 32) s += p[c];
+      for (int c = wl; c < ncols; c += 32) s += to_f(p[c]);
       s = warp_sum(s);
       if (wl == 0) rowsum[((size_t)seg * seg_rows + r0 + r) * ptiles + pt] = s;
     }
   }
 }
 
+template <typename T>
+int launch(const void* o, int nseg, int seg_rows, int cols, int bm, int bn,
+           float* colsum, float* rowsum, float* sumsq, float* wcolsum,
+           void* stream) {
+  const int mtiles = (seg_rows + bm - 1) / bm;
+  const int ptiles = (cols + bn - 1) / bn;
+  dim3 grid(nseg * mtiles, ptiles);
+  checksum_reduce_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const T*>(o), seg_rows, cols, bm, bn, mtiles, ptiles,
+      colsum, rowsum, sumsq, wcolsum);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// O float32 (_f32) or bfloat16 (_bf16), row-major (nseg * seg_rows, cols).
 // colsum/wcolsum: (nseg * ceil(seg_rows/bm), cols); sumsq: (nseg *
 // ceil(seg_rows/bm), ceil(cols/bn)); rowsum: (nseg * seg_rows,
-// ceil(cols/bn)) or null to skip it. Returns cudaGetLastError().
+// ceil(cols/bn)) or null to skip it; all float32. Returns
+// cudaGetLastError().
 extern "C" int repro_checksum_reduce_f32(const float* o, int nseg, int seg_rows,
                                          int cols, int bm, int bn,
                                          float* colsum, float* rowsum,
                                          float* sumsq, float* wcolsum,
                                          void* stream) {
-  const int mtiles = (seg_rows + bm - 1) / bm;
-  const int ptiles = (cols + bn - 1) / bn;
-  dim3 grid(nseg * mtiles, ptiles);
-  checksum_reduce_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      o, seg_rows, cols, bm, bn, mtiles, ptiles, colsum, rowsum, sumsq, wcolsum);
-  return (int)cudaGetLastError();
+  return launch<float>(o, nseg, seg_rows, cols, bm, bn, colsum, rowsum,
+                       sumsq, wcolsum, stream);
+}
+
+extern "C" int repro_checksum_reduce_bf16(const void* o, int nseg,
+                                          int seg_rows, int cols, int bm,
+                                          int bn, float* colsum,
+                                          float* rowsum, float* sumsq,
+                                          float* wcolsum, void* stream) {
+  return launch<__nv_bfloat16>(o, nseg, seg_rows, cols, bm, bn, colsum,
+                               rowsum, sumsq, wcolsum, stream);
 }

@@ -79,7 +79,7 @@ def test_checksum_reduce_kernel_on_card(cuda_device, oshape):
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
-    o = torch.zeros((16, 16), device=cuda_device, dtype=torch.bfloat16)
+    o = torch.zeros((16, 16), device=cuda_device, dtype=torch.float16)
     with pytest.raises(NotImplementedError):
         TCR.checksum_reduce(o, 8, 8)
     with pytest.raises(ValueError):
@@ -173,17 +173,37 @@ DETECT_CASES = [(8, 960, 960, 8, 960, False), (8, 960, 320, 8, 320, False),
                 (128, 960, 2560, 128, 640, False),
                 (128, 960, 49152, 128, 1024, True),
                 (16, 64, 32, 16, 32, False), (2, 64, 96, 2, 48, False),
-                (40, 72, 96, 8, 48, False), (96, 72, 80, 32, 16, True)]
+                (40, 72, 96, 8, 48, False), (96, 72, 80, 32, 16, True),
+                # more chunks per block tile than the bf16 block has threads
+                (128, 40, 64, 1, 8, False)]
 
 
 def test_kernel_tiling_is_read_from_the_source(cuda_device):
     """The wrappers size their buffers from the CUDA source's own tiling
-    rule: 16 x 32 for N <= 16, else 64 x 64, and a detect segment that
-    divides both the tile's width and cb."""
-    assert TAM.kernel_tiling(8) == (16, 32, 0)
-    assert TAM.kernel_tiling(16, 960) == (16, 32, 32)
-    assert TAM.kernel_tiling(17, 640) == (64, 64, 64)
-    assert TAM.kernel_tiling(128, 48) == (64, 64, 16)
+    rule (tm, tn, seg, splits, swapped). float32: 16 x 32 for N <= 16,
+    else 64 x 64, no split. bfloat16: O^T = W^T D^T in blocks of 64
+    columns by the smallest of 8-128 rows that holds N, K split over up to
+    8 blocks (one cluster) so that tiles x splits reaches about 132. The
+    detect segment divides both the tile's width and cb."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert TAM.kernel_tiling(8, 512, 1000, f32) == (16, 32, 0, 1, False)
+    assert TAM.kernel_tiling(16, 960, 960, f32, 960) == (16, 32, 32, 1,
+                                                         False)
+    assert TAM.kernel_tiling(17, 520, 640, f32, 640) == (64, 64, 64, 1,
+                                                         False)
+    assert TAM.kernel_tiling(128, 64, 48, f32, 48) == (64, 64, 16, 1, False)
+    # decode: 15 tiles of a 960-wide site, 15 K tiles of 64 -> 8 splits
+    assert TAM.kernel_tiling(8, 960, 960, bf16, 960) == (8, 64, 64, 8, True)
+    assert TAM.kernel_tiling(8, 960, 320, bf16) == (8, 64, 0, 8, True)
+    assert TAM.kernel_tiling(8, 2560, 960, bf16) == (8, 64, 0, 8, True)
+    # the head's 768 tiles fill the card without a split
+    assert TAM.kernel_tiling(8, 960, 49152, bf16, 1024) == (8, 64, 64, 1,
+                                                            True)
+    assert TAM.kernel_tiling(128, 960, 2560, bf16, 640) == (128, 64, 64, 4,
+                                                            True)
+    assert TAM.kernel_tiling(17, 1000, 48, bf16, 48) == (32, 64, 16, 8,
+                                                         True)
+    assert TAM.kernel_tiling(300, 64, 48, bf16) == (128, 64, 0, 1, True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -230,6 +250,135 @@ def test_abft_matmul_detect_kernel_on_card(cuda_device, n, k, m, rb, cb,
                      else 1e-5, 1e-4 * k ** 0.5, "O")
         assert torch.equal(o, o_p), "detect and partials kernels round O " \
             "differently"
+
+
+@pytest.mark.parametrize("n", [1, 8, 16, 17, 32, 64, 128])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("k,m", [(1000, 200), (997, 203)])
+def test_bf16_mainloop_is_deterministic_and_shared(cuda_device, n,
+                                                   transposed, k, m):
+    """The bf16 wgmma mainloop at every row tile, both W layouts, a K that
+    the 64-wide K tiles and the split leave ragged (1000: 16-byte rows,
+    copied asynchronously; 997 x 203: rows that are not, loaded element
+    by element): O bitwise equal between abft_matmul and
+    abft_matmul_detect, bitwise equal O, flags and scores on a second call
+    (the split-K sum is taken in a fixed order), O within one bf16 ulp of
+    the plain version and flags equal to its."""
+    from repro_torch.core import thresholds as TTH
+    bf16 = torch.bfloat16
+    d = torch.as_tensor(normal(n, (n, k))).to(cuda_device, bf16)
+    if transposed:
+        w = torch.as_tensor(normal(m, (m, k)) * k ** -0.5).to(
+            cuda_device, bf16).T
+    else:
+        w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(
+            cuda_device, bf16)
+    t = TAM.kernel_tiling(n, k, m, bf16, m)
+    assert t.splits > 1 and t.swapped
+    cs = _chunk_checksums(d, w, n, m)
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, bf16, 32.0)
+    runs = [TAM.abft_matmul_detect(d, w, *cs, n, m, tau_a, tau_b)
+            for _ in range(2)]
+    o_p, _ = TAM.abft_matmul(d, w, 8, 8)
+    o_r, flag_r, _ = tref.abft_matmul_detect_ref(d, w, *cs, n, m, tau_a,
+                                                  tau_b)
+    torch.cuda.synchronize()
+    (o, flag, score), again = runs
+    for a, b in zip((o, flag, score), again):
+        assert torch.equal(a, b) and a.dtype == b.dtype
+    assert torch.equal(o, o_p), "detect and partials kernels round O " \
+        "differently"
+    ulp = o_r.float().abs() * 2.0 ** -7 + 1e-6
+    assert bool(((o.float() - o_r.float()).abs() <= ulp).all())
+    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+
+
+def test_bf16_detect_keeps_no_state_between_launches(cuda_device):
+    """The bf16 detect launch meets a chunk's tiles on counters that no
+    other launch uses at the same time: launches issued on two streams at
+    once, and two CUDA graphs captured one after the other, before an
+    eager launch with more chunks and replayed in turns after it, each
+    flag exactly the chunk its shifted c5 names, as the plain version
+    does."""
+    from repro_torch.core import thresholds as TTH
+    bf16 = torch.bfloat16
+    n, k, m, rb, cb = 8, 960, 2560, 8, 128
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, bf16, 32.0)
+    w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(cuda_device, bf16)
+
+    def case(seed, j):
+        d = torch.as_tensor(normal(seed, (n, k))).to(cuda_device, bf16)
+        cs = _chunk_checksums(d, w, rb, cb)
+        o = (d.float() @ w.float())[:, j * cb:(j + 1) * cb]
+        cs[0][0, j] += 10.0 * (tau_a * float(o.norm())
+                               + tau_b * float(cs[3][0, j]))
+        args = (d, w, *cs, rb, cb, tau_a, tau_b)
+        flag_r = tref.abft_matmul_detect_ref(*args)[1]
+        assert int(flag_r.sum()) == 1 and int(flag_r[0, j]) == 1
+        return args, flag_r
+
+    cases = [case(1, 3), case(2, 17)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in cases]
+    torch.cuda.synchronize()
+    flags = [[], []]
+    for _ in range(8):
+        for i, (args, _) in enumerate(cases):
+            with torch.cuda.stream(streams[i]):
+                flags[i].append(TAM.abft_matmul_detect(*args)[1])
+    torch.cuda.synchronize()
+    for (_, flag_r), got in zip(cases, flags):
+        assert all(torch.equal(f, flag_r) for f in got)
+
+    graphs, captured = [], []
+    for args, _ in cases:
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            captured.append(TAM.abft_matmul_detect(*args)[1])
+    d = cases[1][0][0]
+    more = TAM.abft_matmul_detect(d, w, *_chunk_checksums(d, w, 1, 32), 1,
+                                  32, tau_a, tau_b)[1]
+    for _ in range(2):
+        for graph, flag, (_, flag_r) in zip(graphs, captured, cases):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(flag, flag_r)
+    assert more.shape == (n, m // 32) and int(more.sum()) == 0
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_bf16_accumulation_keeps_fp32_rounding(cuda_device, transposed):
+    """wgmma's accumulators truncate toward zero; summed over all of K they
+    drift from IEEE fp32 accumulation, which the thresholds price. The
+    mainloop adds each K stage's sum in fp32 registers instead, so the
+    kernel's fp32 O (colsum at one-row tiles) stays as close to the exact
+    product as cuBLAS's fp32 one: rms error and bias toward zero each at
+    most cuBLAS's rms error times 2 and 1, at a K of 2560 on 132 tiles (no
+    split). Summed by wgmma over all of K, both are an order of magnitude
+    larger."""
+    n, k, m = 16, 2560, 8448
+    bf16 = torch.bfloat16
+    d = torch.as_tensor(normal(1, (n, k))).to(cuda_device, bf16)
+    if transposed:
+        w = torch.as_tensor(normal(2, (m, k)) * k ** -0.5).to(
+            cuda_device, bf16).T
+    else:
+        w = torch.as_tensor(normal(2, (k, m)) * k ** -0.5).to(
+            cuda_device, bf16)
+    assert TAM.kernel_tiling(n, k, m, bf16).splits == 1
+    _, (o32, _, _, _, _) = TAM.abft_matmul(d, w, 1, 1)
+    exact = d.double() @ w.double()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref32 = d.float() @ w.float()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = o32.double() - exact
+    rms = float(err.pow(2).mean().sqrt())
+    rms_ref = float((ref32.double() - exact).pow(2).mean().sqrt())
+    bias = float((err * exact.sign()).mean())
+    assert rms <= 2.0 * rms_ref, (rms, rms_ref)
+    assert abs(bias) <= rms_ref, (bias, rms_ref)
 
 
 @pytest.mark.parametrize("shape", [(8, 960, 2560), (128, 2560, 960),

@@ -9,7 +9,10 @@ version on the card.
 Tolerances: O and its sums are fp32 reassociations of the same terms -
 rtol=1e-5, atol=1e-4*sqrt(K) for O, and for the epilogue partials the
 1e-3*sqrt(K) of tests/test_kernels.py (a partial sums up to bm*bn
-elements of O)."""
+elements of O). On bf16 operands (cast from the same fp32 numpy values on
+both sides, so bit-identical) the sums stay fp32 with those tolerances,
+and O is one rounding of two fp32 sums to bf16: rtol 2^-7 (one bf16 ulp)
+beside the same atol."""
 import numpy as np
 import pytest
 
@@ -36,30 +39,45 @@ CONV_VIEWS = [((8, 32, 8, 8), (8, 64)), ((4, 24, 15, 15), (8, 64)),
               ((2, 20, 14, 14), None), ((2, 40, 7, 7), None)]
 
 
+# (torch dtype, jax dtype, rtol of O) of the operand types the kernels take
+DTYPES = {"f32": (torch.float32, jnp.float32, 1e-5),
+          "bf16": (torch.bfloat16, jnp.bfloat16, 2.0 ** -7)}
+
+
 def _mm_operands(n, k, m, seed):
     return normal(seed, (n, k)), normal(seed + 1, (k, m))
 
 
+def _both(x, dtype):
+    """A numpy fp32 array as bit-identical (jax, torch) arrays of dtype."""
+    t, j, _ = DTYPES[dtype]
+    return jnp.asarray(x).astype(j), torch.as_tensor(x).to(t)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", MM_SHAPES + MM_RAGGED)
-def test_abft_matmul_matches_jax(shape):
+def test_abft_matmul_matches_jax(shape, dtype):
     n, k, m = shape
     d, w = _mm_operands(n, k, m, seed=n + m)
-    o_j, parts_j = jops.abft_matmul(jnp.asarray(d), jnp.asarray(w),
-                                    interpret=True)
-    o_t, parts_t = tops.abft_matmul(torch.as_tensor(d), torch.as_tensor(w))
+    (d_j, d_t), (w_j, w_t) = _both(d, dtype), _both(w, dtype)
+    o_j, parts_j = jops.abft_matmul(d_j, w_j, interpret=True)
+    o_t, parts_t = tops.abft_matmul(d_t, w_t)
     assert parts_t[3:] == tuple(parts_j[3:]), (parts_t[3:], parts_j[3:])
-    assert_close(o_t, o_j, 1e-5, 1e-4 * k ** 0.5, "O")
+    assert o_t.dtype == DTYPES[dtype][0] and o_j.dtype == DTYPES[dtype][1]
+    assert_close(o_t.float(), np.asarray(o_j, np.float32), DTYPES[dtype][2],
+                 1e-4 * k ** 0.5, "O")
     for a, b, name in zip(parts_t[:3], parts_j[:3],
                           ("colsum", "rowsum", "sumsq")):
         assert tuple(a.shape) == tuple(b.shape), name
         assert_close(a, b, 1e-5, 1e-3 * k ** 0.5, name)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", CR_SHAPES + CR_RAGGED)
-def test_checksum_reduce_matches_jax(shape):
-    o = normal(sum(shape), shape)
-    got = tops.checksum_reduce(torch.as_tensor(o))
-    want = jops.checksum_reduce(jnp.asarray(o), interpret=True)
+def test_checksum_reduce_matches_jax(shape, dtype):
+    o_j, o_t = _both(normal(sum(shape), shape), dtype)
+    got = tops.checksum_reduce(o_t)
+    want = jops.checksum_reduce(o_j, interpret=True)
     assert got[4:] == tuple(want[4:])
     for a, b, name in zip(got[:4], want[:4],
                           ("colsum", "rowsum", "sumsq", "wcolsum")):
