@@ -10,8 +10,12 @@ Phases, each fatal on failure:
      at the shapes ResNet-18 (width 1.0, img 224, batch 8) gives it, with
      its median time (CUDA events), the plain version's time, one PyTorch
      library call's time where one computes the same function, and the
-     bound (the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s fp32);
-     checksum_reduce also on the same O rounded to bf16;
+     bound (the larger of bytes / 3.35 TB/s and flops / 67 TFLOP/s fp32):
+     at each conv view the conv detection sums (the main path's launch),
+     on O and on O rounded to bf16, beside the tile-partials entry point
+     and the two PyTorch calls of the plain detection pass; the fc's
+     abft_matmul and abft_matmul_detect; torch.profiler's count of device
+     kernels in one conv-sums call and one f32 detect call (one each);
   3b. the serving path's kernels at every GEMM shape of a SmolLM-360M
      decode step (8 rows) and of every prefill bucket (16, 32, 64, 128
      rows), in bf16 (the tied head's weight read in place as the
@@ -191,14 +195,40 @@ def conv_output_shapes(cfg):
     return shapes
 
 
+def device_kernels(fn) -> dict:
+    """The device kernels one call of fn launches, by name, with their
+    counts (torch.profiler, after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Activity Buffer")}
+
+
 def check_checksum_reduce(cfg, gen, report):
+    """At each conv view: the conv detection sums (one launch, what the
+    main path runs) on O and on O rounded to bf16 against their plain
+    version, and, through ops.conv_detect_sums, against the plain
+    detection pass; the tile-partials entry point on both against its
+    plain version. Times per view and per forward: the conv sums, the tile
+    partials alone and finished by PyTorch ops as PR 13's main path did,
+    the conv sums' plain version, and the two PyTorch calls of the plain
+    detection pass (enc @ O, torch.dot)."""
     import torch
     from repro_torch.kernels import checksum_reduce as CR
     from repro_torch.kernels import ops
     from repro_torch.core import checksums as C
     shapes = conv_output_shapes(cfg)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0}
-    err_all = 0.0
+    names = ("s5", "s6", "s7", "sumsq")
+    rows, err_all = [], 0.0
+    tot = {k: 0.0 for k in ("ms", "partials_ms", "route_ms", "plain_ms",
+                            "library_ms", "bytes", "flops")}
     for shape in sorted(set(shapes), key=shapes.index):
         count = shapes.count(shape)
         layer = shapes.index(shape)
@@ -207,89 +237,121 @@ def check_checksum_reduce(cfg, gen, report):
         o4 = torch.randn(shape, generator=gen, device="cuda")
         o2 = o4.reshape(n * m, p)
         bm, bn = ops.conv_tiles(m, p, on_card=True)
-        got = CR.checksum_reduce(o2, bm, bn, segments=n, rowsum=True)
-        want = CR.checksum_reduce_plain(o2, bm, bn, segments=n, rowsum=True)
-        torch.cuda.synchronize()
         errs = {}
-        for name, g, w in zip(("colsum", "rowsum", "sumsq", "wcolsum"),
-                              got, want):
-            if g.shape != w.shape:
-                fail(f"checksum_reduce {shape} {name}: shape {tuple(g.shape)}"
-                     f" vs plain {tuple(w.shape)}")
-            err = max_err(g, w)
-            # fp32 reassociation over at most bm*bn terms
-            tol = 1e-5 * (float(w.abs().max()) + 1.0)
-            if not err <= tol:
-                fail(f"checksum_reduce {shape} {name}: max |err| {err:.3g} "
-                     f"> {tol:.3g}")
-            errs[name] = err
-        # the finished detection sums of the conv route vs the plain pass
-        k_sums = ops.conv_detect_sums(o4)
-        p_sums = C.detect_sums(o4)
-        for name, g, w in zip(("s5", "s6", "s7", "sumsq"), k_sums, p_sums):
+        for dt, x in (("f32", o4), ("bf16", o4.to(torch.bfloat16))):
+            # the tile partials: fp32 reassociation over at most bm*bn terms
+            got = CR.checksum_reduce(x.reshape(n * m, p), bm, bn, segments=n)
+            want = CR.checksum_reduce_plain(x.reshape(n * m, p), bm, bn,
+                                            segments=n)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("colsum", "rowsum", "sumsq", "wcolsum"),
+                                  got, want):
+                err = max_err(g, w) if g.shape == w.shape else float("inf")
+                tol = 1e-5 * (float(w.abs().max()) + 1.0)
+                if not err <= tol:
+                    fail(f"checksum_reduce {dt} {shape} {name}: max |err| "
+                         f"{err:.3g} > {tol:.3g} (shape {tuple(g.shape)} vs "
+                         f"plain {tuple(w.shape)})")
+                errs[f"partials_{dt}_{name}"] = err
+            # the conv sums: reassociation over up to N*M terms per payload
+            # position and N*M*P for the sum of squares
+            got = CR.conv_sums(x)
+            want = CR.conv_sums_plain(x, bm, bn)
+            torch.cuda.synchronize()
+            for name, g, w in zip(names, got, want):
+                err = max_err(g, w) if g.shape == w.shape else float("inf")
+                tol = 1e-4 * (float(w.abs().max()) + 1.0)
+                if not err <= tol:
+                    fail(f"conv_sums {dt} {shape} {name}: max |err| "
+                         f"{err:.3g} > {tol:.3g}")
+                errs[f"conv_sums_{dt}_{name}"] = err
+        # the main path's route against the plain detection pass it replaces
+        for name, g, w in zip(names, ops.conv_detect_sums(o4),
+                              C.detect_sums(o4)):
             err = max_err(g, w)
             tol = 1e-4 * (float(w.abs().max()) + 1.0)
             if not err <= tol:
                 fail(f"conv_detect_sums {shape} {name}: max |err| {err:.3g} "
                      f"> {tol:.3g}")
             errs["detect_" + name] = err
-        # the same O rounded to bf16: the kernel reads it as it is and sums
-        # in fp32, as the plain version does after its cast
-        o2b = o2.to(torch.bfloat16)
-        got = CR.checksum_reduce(o2b, bm, bn, segments=n, rowsum=True)
-        want = CR.checksum_reduce_plain(o2b, bm, bn, segments=n, rowsum=True)
-        torch.cuda.synchronize()
-        for name, g, w in zip(("colsum", "rowsum", "sumsq", "wcolsum"),
-                              got, want):
-            err = max_err(g, w)
-            tol = 1e-5 * (float(w.abs().max()) + 1.0)
-            if g.shape != w.shape or not err <= tol:
-                fail(f"checksum_reduce bf16 {shape} {name}: max |err| "
-                     f"{err:.3g} > {tol:.3g}")
-            errs["bf16_" + name] = err
         err_all = max(err_all, *(v for k, v in errs.items()
                                  if not k.startswith("detect")))
-        # the main path's launch (rowsum skipped), on inputs cold in L2
-        args = copies([o2])
-        ms = time_device(lambda t: CR.checksum_reduce(
-            t, bm, bn, segments=n, rowsum=False), args)
-        plain_ms = time_device(lambda t: CR.checksum_reduce_plain(
-            t, bm, bn, segments=n, rowsum=False), args)
+        # inputs cold in L2
+        args = copies([o4])
+        dev = o4.device
+        enc = torch.stack([torch.ones(n * m, device=dev),
+                           torch.arange(n, device=dev).float()
+                           .repeat_interleave(m),
+                           torch.arange(m, device=dev).float().repeat(n)])
+
+        def library(t):
+            flat = t.reshape(-1)
+            return enc @ t.reshape(n * m, p), torch.dot(flat, flat)
+
+        ms = time_device(CR.conv_sums, args)
+        partials_ms = time_device(lambda t: CR.checksum_reduce(
+            t.reshape(n * m, p), bm, bn, segments=n, rowsum=False), args)
+
+        def partials_route(t):
+            # PR 13's main path: the tile partials, finished by PyTorch ops
+            c, _, sq, w = CR.checksum_reduce(t.reshape(n * m, p), bm, bn,
+                                             segments=n, rowsum=False)
+            return CR.finish_conv_sums(c, sq, w, m, bm)
+
+        route_ms = time_device(partials_route, args)
+        plain_ms = time_device(lambda t: CR.conv_sums_plain(t, bm, bn), args)
+        lib_ms = time_device(library, args)
         del args
-        t = n * -(-m // bm)
-        nbytes = 4.0 * (n * m * p + 2 * t * p + t * -(-p // bn))
-        flops = 5.0 * n * m * p
+        nbytes = 4.0 * (n * m * p + 3 * p + 1)
+        flops = 7.0 * n * m * p
         b, by = bound_ms(nbytes, flops)
         rows.append({"shape": list(shape), "first_layer": f"conv{layer}",
-                     "count": count, "tiles": [bm, bn], "ms": ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": b, "bound_by": by,
-                     "max_abs_err": errs})
-        log(f"  checksum_reduce conv{layer} O{shape} x{count} tiles "
-            f"({bm},{bn}): ms {ms:.4f} plain {plain_ms:.4f} bound {b:.4f} ({by}) max|err| partials "
-            f"{max(errs[k] for k in ('colsum', 'rowsum', 'sumsq', 'wcolsum')):.3g}"
-            f" (bf16 O "
-            f"{max(v for k, v in errs.items() if k.startswith('bf16')):.3g})"
-            f" detect sums "
+                     "count": count, "ms": ms, "partials_ms": partials_ms,
+                     "partials_tiles": [bm, bn],
+                     "partials_route_ms": route_ms, "plain_ms": plain_ms,
+                     "library_two_calls_ms": lib_ms, "bound_ms": b,
+                     "bound_by": by, "max_abs_err": errs})
+        log(f"  conv{layer} O{shape} x{count}: conv_sums ms {ms:.4f} "
+            f"(tile partials ({bm},{bn}) {partials_ms:.4f}, finished by "
+            f"PyTorch ops {route_ms:.4f}) plain "
+            f"{plain_ms:.4f} enc@O + torch.dot (two calls) {lib_ms:.4f} "
+            f"bound {b:.4f} ({by}); max|err| conv_sums "
+            f"{max(v for k, v in errs.items() if k.startswith('conv')):.3g}"
+            f" partials "
+            f"{max(v for k, v in errs.items() if k.startswith('partials')):.3g}"
+            f" vs plain pass "
             f"{max(v for k, v in errs.items() if k.startswith('detect')):.3g}")
-        tot["ms"] += count * ms
-        tot["plain_ms"] += count * plain_ms
-        tot["bytes"] += count * nbytes
-        tot["flops"] += count * flops
+        for k, v in (("ms", ms), ("partials_ms", partials_ms),
+                     ("route_ms", route_ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                     ("bytes", nbytes), ("flops", flops)):
+            tot[k] += count * v
     b, by = bound_ms(tot["bytes"], tot["flops"])
-    report["checksum_reduce"] = {"per_shape": rows, "forward_ms": tot["ms"],
-                                 "forward_plain_ms": tot["plain_ms"],
-                                 "forward_bound_ms": b,
-                                 "bytes_per_forward": tot["bytes"]}
-    log(f"  checksum_reduce per forward (17 launches): ms {tot['ms']:.4f} "
-        f"plain {tot['plain_ms']:.4f} bound {b:.4f} ({by}), "
-        f"{tot['bytes'] / 1e6:.1f} MB")
+    # one device kernel per call, at conv0's view
+    o4 = torch.randn(shapes[0], generator=gen, device="cuda")
+    kernels = device_kernels(lambda: CR.conv_sums(o4))
+    if sum(kernels.values()) != 1:
+        fail(f"one conv_sums call launched {kernels}")
+    report["checksum_reduce"] = {
+        "per_shape": rows, "forward_ms": tot["ms"],
+        "forward_partials_ms": tot["partials_ms"],
+        "forward_partials_route_ms": tot["route_ms"],
+        "forward_plain_ms": tot["plain_ms"],
+        "forward_library_two_calls_ms": tot["library_ms"],
+        "forward_bound_ms": b, "bytes_per_forward": tot["bytes"],
+        "device_kernels_per_call": kernels}
+    log(f"  per forward (17 launches): conv_sums ms {tot['ms']:.4f} (tile "
+        f"partials {tot['partials_ms']:.4f}, finished by PyTorch ops "
+        f"{tot['route_ms']:.4f}) plain {tot['plain_ms']:.4f} "
+        f"enc@O + torch.dot (two calls) {tot['library_ms']:.4f} bound "
+        f"{b:.4f} ({by}), {tot['bytes'] / 1e6:.1f} MB; device kernels per "
+        f"call {kernels}")
     return {"name": "checksum_reduce", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/checksum_reduce.cu",
             "replaces": "src/repro/kernels/checksum_reduce.py:37",
             "max_abs_err": err_all, "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,
-            # no single PyTorch call computes colsum/wcolsum/sumsq tiles
+            # the plain detection pass takes two PyTorch calls (timed above
+            # as library_two_calls_ms); no one call gives these sums
             "library_ms": None}
 
 
@@ -298,7 +360,7 @@ def check_abft_matmul(cfg, gen, report):
     from repro_torch.core.protected import pick_chunk
     from repro_torch.kernels import abft_matmul as AM
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import abft_matmul_ref
+    from repro_torch.kernels.ref import abft_matmul_detect_ref, abft_matmul_ref
     fc_k = cfg.scaled(cfg.convs[-1].out_ch)
     shapes = {"fc": (BATCH, fc_k, cfg.num_classes),
               "ragged": (37, 520, 1000)}
@@ -336,6 +398,29 @@ def check_abft_matmul(cfg, gen, report):
                 fail(f"fc partial tiles {(gm, gn)} do not divide the chunk "
                      f"{(rb, cb)}")
             ops.chunk_sums_from_partials(parts, rb, cb)   # raises if not
+            # the detect entry point on the same mainloop: one kernel, O
+            # bitwise abft_matmul's, flags the plain version's (clear on
+            # exact checksums)
+            cs, _ = exact_chunk_checksums(d, w, rb, cb)
+            o_d, flag, _ = AM.abft_matmul_detect(d, w, *cs, rb, cb, 1e-3,
+                                                 1e-3)
+            flag_r = abft_matmul_detect_ref(d, w, *cs, rb, cb, 1e-3, 1e-3)[1]
+            torch.cuda.synchronize()
+            if not torch.equal(o_d, o):
+                fail(f"fc: abft_matmul_detect and abft_matmul round O "
+                     f"differently (max |diff| {max_err(o_d, o):.3g})")
+            if not torch.equal(flag, flag_r) or int(flag.sum()):
+                fail(f"fc detect flags {flag.tolist()} vs plain "
+                     f"{flag_r.tolist()}")
+            kernels = device_kernels(lambda: AM.abft_matmul_detect(
+                d, w, *cs, rb, cb, 1e-3, 1e-3))
+            if sum(kernels.values()) != 1:
+                fail(f"one f32 abft_matmul_detect call launched {kernels}")
+            report["fc_detect_device_kernels_per_call"] = kernels
+            t = AM.kernel_tiling(n, k, m, torch.float32, cb)
+            log(f"  fc tiling: tile {t.tm}x{t.tn}, {t.splits} splits, "
+                f"{t.tiles(n, m) * t.splits} blocks; abft_matmul_detect: one "
+                f"device kernel per call {kernels}")
         args = copies([d, w])
         ms = time_device(lambda a, b: AM.abft_matmul(a, b, gm, gn), args)
         plain_ms = time_device(lambda a, b: abft_matmul_ref(a, b, gm, gn),
@@ -520,9 +605,8 @@ def check_serving_kernels(gen, report):
                              f"{float(score_tr[-1, -1]):.6g}")
                 err_det = max(err_det, e_s, e_t, max_err(o, o_r))
                 err_mm = max(err_mm, max_err(o_mm, o_mr), e_p)
-                tile_txt = (f"tile {tiling.tm}x{tiling.tn} "
-                            f"{'O^T = W^T D^T' if tiling.swapped else 'O = D W'}"
-                            f", {tiling.splits} splits, {blocks} blocks")
+                tile_txt = (f"tile {tiling.tm}x{tiling.tn}, {tiling.splits} "
+                            f"splits, {blocks} blocks")
                 row = {"site": label, "shape": [n, k, m], "chunks": [rb, cb],
                        "w_transposed": transposed, "per_forward": count,
                        "tiling": {**tiling._asdict(), "blocks": blocks},
@@ -657,16 +741,17 @@ def host_split(fwds: dict, reps: int = 5) -> dict:
     """Host microseconds per forward spent inside the detection route's
     layers, from timing spans wrapped around the port's own functions for
     the length of `reps` forwards of each fwds entry. The spans nest:
-    detect_sums > conv_detect_sums > (the checksum_reduce wrapper > its
-    ctypes launch, then finish_conv_sums), so each layer's own cost is its
-    span less the ones inside it. Issue time only: nothing inside the spans synchronizes."""
+    detect_sums > conv_detect_sums > the conv-sums wrapper > (its counter
+    lookup, then its ctypes launch), so each layer's own cost is its span
+    less the ones inside it. Issue time only: nothing inside the spans
+    synchronizes."""
     import torch
     from repro_torch.core import checksums as C
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, _counters, ops
     spans = {"detect_sums": (C, "detect_sums"),
              "conv_detect_sums": (ops, "conv_detect_sums"),
-             "checksum_reduce": (ops, "_checksum_reduce_kernel"),
-             "finish_conv_sums": (ops, "finish_conv_sums"),
+             "conv_sums": (ops, "_conv_sums_kernel"),
+             "counters": (_counters, "counters"),
              "abft_matmul": (ops, "_abft_matmul_kernel"),
              "chunk_sums_from_partials": (ops, "chunk_sums_from_partials"),
              "launch": (_build, "launch")}
@@ -861,14 +946,14 @@ def run_slice(report):
                         for n, d in v["spans"].items()))
     sp = split["per_layer"]["spans"]
     us = lambda k: sp[k]["us_per_call"]
-    log("  checksum_reduce route, host us per call: detect_sums "
+    launch = us("launch repro_conv_detect_sums_f32")
+    log("  conv sums route, host us per call: detect_sums "
         f"{us('detect_sums'):.1f} = own "
-        f"{us('detect_sums') - us('conv_detect_sums'):.1f} + tile choice "
-        f"{us('conv_detect_sums') - us('checksum_reduce') - us('finish_conv_sums'):.1f}"
-        f" + finishing glue {us('finish_conv_sums'):.1f} + checks and "
-        f"allocation {us('checksum_reduce') - us('launch repro_checksum_reduce_f32'):.1f}"
-        f" + ctypes launch {us('launch repro_checksum_reduce_f32'):.1f}; the "
-        "plain pass "
+        f"{us('detect_sums') - us('conv_detect_sums'):.1f} + dispatch "
+        f"{us('conv_detect_sums') - us('conv_sums'):.1f} + checks, "
+        "allocation and views "
+        f"{us('conv_sums') - us('counters') - launch:.1f} + counters "
+        f"{us('counters'):.1f} + ctypes launch {launch:.1f}; the plain pass "
         f"{split['per_layer_unfused']['spans']['detect_sums']['us_per_call']:.1f}")
 
     res["profile"] = {

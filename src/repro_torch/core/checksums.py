@@ -153,8 +153,9 @@ def detect_sums(o: torch.Tensor, *, use_kernel: bool = False,
     [1; n; m] plus a dot for the sum of squares. `exact_order=True`
     reduces in output_sums_conv's order and is bitwise identical to it on
     fp32. `use_kernel=True` routes the pass through the checksum_reduce
-    kernel on the flattened (N*M, E*E) view; only a CPU tensor whose view
-    is degenerate falls through to the plain pass, as in the JAX package."""
+    module's conv sums (kernels.ops.conv_detect_sums); only a CPU tensor
+    whose view is degenerate falls through to the plain pass, as in the
+    JAX package."""
     if use_kernel and not exact_order:
         from repro_torch.kernels import ops as kops
         out = kops.conv_detect_sums(o, tiles=tiles)

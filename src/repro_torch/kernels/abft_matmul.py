@@ -13,36 +13,34 @@ granularity that is a multiple of (bm, bn). `abft_matmul_detect` runs the
 CoC-D compare itself and returns one flag and one score per (rb x cb)
 detection chunk.
 
-On a CUDA tensor both launch the CUDA kernels in csrc/abft_matmul.cu,
-which share one mainloop per operand type (so they round O identically):
-bf16 operands run a wgmma (tensor-core) mainloop that computes O^T = W^T
-D^T and splits K over the blocks of a cluster when the tiles cannot fill
-the card; float32 ones keep fp32 FMA. The tiling (block tile, split
-count) is chosen by the source from (N, K, M, dtype); the wrappers ask for
-it through `repro_abft_tiling`, size their buffers from it, and sum a
+On a CUDA tensor both launch the CUDA kernel in csrc/abft_matmul.cu, one
+mainloop per operand type that both entry points share (so they round O
+identically): the blocks compute O^T = W^T D^T in tiles of 64 columns by
+8-128 rows and split K over the blocks of a cluster when the tiles cannot
+fill the card; bf16 operands run wgmma (the tensor cores), float32 ones
+IEEE fp32 FMA on the CUDA cores. The tiling (block tile, split count) is
+chosen by the source from (N, K, M, dtype); the wrappers ask for it
+through `repro_abft_tiling`, size their buffers from it, and sum a
 coarser partial granularity from the tile's. Operands are float32 or
 bfloat16 (O in D's type, every sum in fp32). W is (K, M) row-major or the
 transposed view of an (M, K) row-major tensor (the tied LM head), read in
 place. On a CPU tensor each runs its plain version (ref.py). `LAUNCHES`
-and `DETECT_LAUNCHES` count the kernels' launches.
+and `DETECT_LAUNCHES` count the kernel's launches.
 
-On bf16 the detect entry point is one launch: the last block to finish a
+The detect entry point is one launch: the last block to finish a
 detection chunk's tiles runs its compare. The tiles of a chunk meet on
-int32 counters that start at zero and that the kernel leaves zero (a
-memset per call would add a launch's latency to a kernel of a few µs).
-So that no two launches use one set at the same time, launches take the
-counters of their stream, and launches captured in a CUDA graph those of
-their capture, zeroed when each replay starts.
+int32 counters (kernels/_counters.py) that start at zero and that the
+kernel leaves zero.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _counters
 from .ref import abft_matmul_detect_ref, abft_matmul_ref
 
 F32 = torch.float32
@@ -58,13 +56,11 @@ def _pow2(x: int) -> bool:
 class Tiling(NamedTuple):
     """How the CUDA source launches an (N, K) @ (K, M) product: block tile
     tm rows x tn columns of O, the detect pass's row segment (0 without a
-    chunk width), the K split (blocks per tile) and whether the blocks
-    compute O^T = W^T D^T."""
+    chunk width) and the K split (blocks per tile)."""
     tm: int
     tn: int
     seg: int
     splits: int
-    swapped: bool
 
     def tiles(self, n: int, m: int) -> int:
         return -(-n // self.tm) * -(-m // self.tn)
@@ -79,45 +75,12 @@ def kernel_tiling(n: int, k: int, m: int, dtype: torch.dtype,
         raise NotImplementedError(f"abft_matmul: no kernel for {dtype}")
     fn = _build.function("abft_matmul", "repro_abft_tiling",
                          [ctypes.c_int] * 5
-                         + [ctypes.POINTER(ctypes.c_int)] * 5)
-    out = [ctypes.c_int() for _ in range(5)]
+                         + [ctypes.POINTER(ctypes.c_int)] * 4)
+    out = [ctypes.c_int() for _ in range(4)]
     if fn(n, k, m, DTYPES[dtype], cb, *(ctypes.byref(x) for x in out)):
         raise ValueError(f"abft_matmul: no tiling for n={n}, k={k}, m={m}, "
                          f"{dtype}, cb={cb}")
-    tm, tn, seg, splits, swapped = (x.value for x in out)
-    return Tiling(tm, tn, seg, splits, bool(swapped))
-
-
-# chunk counters by (device, stream) for eager launches, and by (device,
-# stream, capture id) for launches captured in a graph, kept until the
-# capture has ended
-_COUNTERS: Dict[tuple, torch.Tensor] = {}
-_CAPTURED: Dict[tuple, torch.Tensor] = {}
-
-
-def _chunk_counters(dev: torch.device, chunks: int) -> torch.Tensor:
-    """Zeroed int32 chunk counters for a bf16 detect launch on `dev`'s
-    current stream. Eager launches of one stream run in its order and
-    share its counters; a capture's launches get counters that the graph
-    zeroes when each replay starts (the zero fill is captured with them),
-    so a replay never meets an eager launch's or another graph's."""
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    fn = _build.function("abft_matmul", "repro_capture_id",
-                         [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_ulonglong)])
-    capturing, capture = ctypes.c_int(), ctypes.c_ulonglong()
-    if fn(stream, ctypes.byref(capturing), ctypes.byref(capture)):
-        raise RuntimeError("abft_matmul_detect: cudaStreamGetCaptureInfo")
-    if capturing.value:
-        table, key = _CAPTURED, (dev, stream, capture.value)
-    else:
-        _CAPTURED.clear()
-        table, key = _COUNTERS, (dev, stream)
-    held = table.get(key)
-    if held is None or held.numel() < chunks:
-        held = torch.zeros(max(chunks, 4096), dtype=torch.int32, device=dev)
-        table[key] = held
-    return held
+    return Tiling(*(x.value for x in out))
 
 
 def _operands(d: torch.Tensor, w: torch.Tensor, what: str):
@@ -211,9 +174,7 @@ def _launch_detect(d, w, c5, c6, c7, absdot, rb, cb, tau_a, tau_b,
     t = kernel_tiling(n, k, m, d.dtype, cb)
     o = torch.empty((n, m), dtype=d.dtype, device=dev)
     part = torch.empty((3, n, m // t.seg), dtype=F32, device=dev)
-    # the bf16 route compares the chunks in the GEMM's own launch
-    counters = _chunk_counters(dev, (n // rb) * (m // cb)) \
-        if d.dtype == torch.bfloat16 else None
+    counters = _counters.counters(dev, (n // rb) * (m // cb))
     flag = torch.empty((n // rb, m // cb), dtype=torch.int32, device=dev)
     score = torch.empty((n // rb, m // cb), dtype=F32, device=dev)
     fn = _build.function("abft_matmul", "repro_abft_matmul_detect",
@@ -223,9 +184,8 @@ def _launch_detect(d, w, c5, c6, c7, absdot, rb, cb, tau_a, tau_b,
     _build.launch(fn, dev, d.data_ptr(), w.data_ptr(), o.data_ptr(), dt,
                   layout, n, k, m, rb, cb, *(x.data_ptr() for x in chk),
                   float(tau_a), float(tau_b), int(bool(weighted)),
-                  part.data_ptr(),
-                  None if counters is None else counters.data_ptr(),
-                  flag.data_ptr(), score.data_ptr())
+                  part.data_ptr(), counters.data_ptr(), flag.data_ptr(),
+                  score.data_ptr())
     DETECT_LAUNCHES += 1
     return o, flag, score
 

@@ -20,63 +20,46 @@
 //   bf16 O by its rounding, 2^-7, ~10^5 above any fp32 accumulation
 //   error, and products of bf16 values are exact in fp32, so the tensor
 //   cores (fp32 accumulators) lose nothing the checks can see.
-// * f32 (the CNN's fc, (8 x 512) @ (512 x 1000)): the thresholds price
-//   IEEE fp32 accumulation, which the tensor cores do not give, so it
-//   keeps fp32 FMA on the CUDA cores (the SIMT mainloops below).
+// * f32 (the CNN's fc, (8 x 512) @ (512 x 1000), 0.6 us of bytes): launch
+//   and the first loads' latency set the time; the thresholds price IEEE
+//   fp32 accumulation, which the tensor cores do not give (ROADMAP 3.3),
+//   so the product runs as fp32 FMA on the CUDA cores.
 //
-// The bf16 design (gemm_wgmma_kernel): one warpgroup per block runs
-// wgmma.mma_async on bf16 operands in shared memory, fp32 accumulators in
-// registers. The product is computed transposed, O^T = W^T D^T: wgmma's
-// 64-row M runs over 64 output columns and its N over the block's O rows
-// (8, 16, 32, 64 or 128, the smallest that holds n), so a decode step's 8
-// rows are not padded up to 64. W^T is K-major when W is the transposed
-// view of an (M, K) table (the tied head, read in place) and M-major when
-// W is (K, M) row-major (wgmma's transpose bit); D^T is K-major. K is
-// walked in stages of 64 through a ring of 4 shared-memory stages filled
-// by 16-byte cp.async copies (zero-filled past the edges of D and W), so
-// three stages' loads are in flight while wgmma runs on the one that
-// arrived; a shape whose rows are not 16-byte aligned (K or M not a
-// multiple of 8) fills the same stages with masked 2-byte loads instead,
-// which changes no sum. wgmma's accumulators truncate toward zero: summed
-// over all of K they drift below IEEE fp32 accumulation, which the
-// thresholds price, so each stage's 64 products are summed by wgmma alone
-// and added to a second set of fp32 registers with round-to-nearest.
+// One kernel skeleton for both types (gemm_kernel): one warpgroup (128
+// threads) per block computes an output tile transposed, O^T = W^T D^T: 64
+// output columns by the block's O rows (8, 16, 32, 64 or 128, the smallest
+// that holds n), so a decode step's or the fc's 8 rows are not padded up
+// to 64. K is walked in stages of 128 bytes of each operand row (64 bf16,
+// 32 f32) through a ring of 4 shared-memory stages filled by 16-byte
+// cp.async copies (zero-filled past the edges of D and W), so three
+// stages' loads are in flight while the block computes on the one that
+// arrived; a shape whose rows are not 16-byte aligned fills the same
+// stages with masked element loads instead, which changes no sum. W is
+// read in place as (K, M) row-major or as the transposed view of an (M,
+// K) table (the tied head). The mainloop is the type's own:
+// * bf16: wgmma.mma_async on the stage in shared memory (no-swizzle core
+//   matrices; W^T K-major for the tied head, M-major through wgmma's
+//   transpose bit for row-major W; D^T K-major). wgmma's accumulators
+//   truncate toward zero: summed over all of K they drift below IEEE fp32
+//   accumulation, which the thresholds price, so each stage's 64 products
+//   are summed by wgmma alone and added to a second set of fp32 registers
+//   with round-to-nearest.
+// * f32: each thread owns 4 columns (16 apart) by ROWS / 8 rows (8 apart);
+//   each stage's 32 products of an element are summed by fmaf in K order
+//   in fresh registers and added into a second set (IEEE fp32 all along;
+//   blocked as cuBLAS sums, so the error stays as small as its): 16-byte
+//   shared loads of D's rows and of W^T's, 4-byte ones of row-major W, no
+//   bank conflicts.
 // When the output tiles cannot fill the card, K is split over up to 8
 // blocks of one cluster (splits chosen so that tiles x splits reaches
-// ~132). Through distributed shared memory, rank 0 gets every split's
-// fp32 tile and their sum in rank order - the ranks store their tiles into
-// its shared memory and leave (decode's short tiles), or each rank sums a
-// share of the elements over all ranks (taller tiles, whose splits would
-// not fit one block's shared memory) - no float atomics, so O, flags and
-// scores are the same from run to run - and rank 0 runs the epilogue on
-// the fp32 total. The detect
-// entry point is one launch: after its segments, the last tile of each
-// detection chunk to finish (an integer counter per chunk, reset by that
-// block) runs the chunk's compare.
-//
-// The tiling (tile, orientation, split count) is chosen here alone, from
-// (n, k, m, dtype), so both entry points accumulate each element of O in
-// the same order and round O identically; the wrappers read it through
-// repro_abft_tiling and size their buffers from it.
-//
-// The f32 design: two SIMT tilings of one computation, picked per launch
-// from N alone. W is read either as (K, M) row-major or as (M, K)
-// row-major, as above.
-// * general: a shared-memory tiled SGEMM. A block of 256 threads owns a
-//   64 x 64 output tile and walks K in steps of 16 inside the block (this
-//   loop takes the place of the TPU kernel's sequential k grid axis and its
-//   VMEM accumulator); each thread holds a 4 x 4 micro-tile of accumulators
-//   at rows ty + 16*i and columns tx + 16*j, so a warp's stores coalesce.
-// * skinny, for N <= 16 (the CNN's fc): a 64-row tile would leave most of
-//   its rows empty, so a block owns a 16 x 32 tile and its 8 warps split K
-//   between them. A K chunk of D and of W is staged in shared memory with
-//   loads that coalesce for either W layout; lane l of every warp owns
-//   column l and keeps 16 row accumulators; the warps' partial tiles are
-//   summed in a fixed order.
-// Out-of-range rows, columns and K-slices read as zeros, so operands are
-// never padded in device memory. The finished fp32 tile is staged in shared
-// memory; O is stored in D's type (one rounding) and the epilogue reads the
-// fp32 values:
+// ~132; the fc: 16 tiles x 8 splits). Through distributed shared memory,
+// rank 0 gets every split's fp32 tile and their sum in rank order - the
+// ranks store their tiles into its shared memory and leave (short tiles),
+// or each rank sums a share of the elements over all ranks (taller tiles,
+// whose splits would not fit one block's shared memory) - no float
+// atomics, so O, flags and scores are the same from run to run - and rank
+// 0 stores O, rounded once to its type, and runs the epilogue on the fp32
+// tile:
 // * partials (repro_abft_matmul): a fixed-order reduction to colsum per
 //   (row tile, column), rowsum per (row, column tile) and sumsq per (row
 //   tile, column tile) at granularity (pbm, pbn), powers of two dividing the
@@ -84,14 +67,19 @@
 // * detect (repro_abft_matmul_detect): on the TPU the detection chunk
 //   (rb x cb, up to 1024 x 1024) is the Pallas tile; here a block tile is
 //   far smaller, so each block reduces every row of its tile, in column
-//   segments of P (a power of two dividing both the tile and cb, so a
-//   segment never straddles two chunks), to s5, the chunk-local
-//   column-weighted s7 and the sum of squares. compare_chunk sums each
-//   chunk's segments in a fixed order (row weights give s6), runs the
-//   compare and writes the chunk's flag and score: in a second kernel of
-//   the same entry point on f32, inside the GEMM's launch on bf16. No
-//   float atomics: the flags cannot change from run to run.
+//   segments of P (a power of two dividing both the tile's width and cb, so
+//   a segment never straddles two chunks), to s5, the chunk-local
+//   column-weighted s7 and the sum of squares. Then the last tile of each
+//   detection chunk to finish (an integer counter per chunk, reset by that
+//   block) sums the chunk's segments in a fixed order (row weights give
+//   s6), runs the compare and writes the chunk's flag and score, so the
+//   entry point is one launch.
 // Bias stays outside.
+//
+// The tiling (tile, split count) is chosen here alone, from (n, k, m,
+// dtype), so both entry points accumulate each element of O in the same
+// order and round O identically; the wrappers read it through
+// repro_abft_tiling and size their buffers from it.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -101,33 +89,27 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-
-// W[kk][c] of W (k, m): row-major (k, m), or the transposed view of an
-// (m, k) row-major tensor
-template <typename T, bool kWT>
-__device__ __forceinline__ float load_w(const T* __restrict__ W, int gk,
-                                        int gc, int k, int m) {
-  return kWT ? to_f(W[(size_t)gc * k + gk]) : to_f(W[(size_t)gk * m + gc]);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
+
+constexpr int kWgThreads = 128;   // one warpgroup: a block
+constexpr int WM = 64;            // output columns per block: wgmma's M
 
 // ---------------------------------------------------------------- epilogues
 
-// A row's sum over a segment or a partial column tile can be split over p
-// lanes of one warp and finished by a fixed butterfly (kLanes): p is the
-// most lanes, up to 32, that keep `tasks` sums within NT threads, so a
-// decode tile's few rows do not run serially. Without kLanes p is 1 and
-// each thread sums its own.
-template <bool kLanes, int NT>
+// A row's sum over a segment or a partial column tile is split over p
+// lanes of one warp and finished by a fixed butterfly: p is the most lanes,
+// up to 32, that keep `tasks` sums within the block's threads, so a decode
+// tile's few rows do not run serially.
 __device__ __forceinline__ int lanes_per_task(int tasks) {
-  int p = kLanes ? 32 : 1;
-  while (p > 1 && tasks * p > NT) p /= 2;
+  int p = 32;
+  while (p > 1 && tasks * p > kWgThreads) p /= 2;
   return p;
 }
 
@@ -141,7 +123,7 @@ __device__ __forceinline__ void lanes_sum(float (&v)[N], int p) {
 }
 
 // The partial sums of one finished TM x TN tile held in Cs (elements
-// outside O are zero), by a block of NT threads. Rq is TM x (TN/pbn)
+// outside O are zero), by the block. Rq is TM x (TN/pbn)
 // scratch for per-row sums of squares.
 struct PartialsArgs {
   int pbm, pbn;
@@ -151,10 +133,11 @@ struct PartialsArgs {
   int rs_cols, ss_cols;
 };
 
-template <int TM, int TN, int NT, bool kLanes>
+template <int TM, int TN>
 __device__ void tile_epilogue(float (*Cs)[TN + 1], float (*Rq)[TN + 1],
                               int row0, int col0, int n, int m,
                               const PartialsArgs& a) {
+  constexpr int NT = kWgThreads;
   const int tid = threadIdx.x;
   const int pbm = a.pbm, pbn = a.pbn;
   const int nrt = TM / pbm, nct = TN / pbn;   // partial tiles in this tile
@@ -170,7 +153,7 @@ __device__ void tile_epilogue(float (*Cs)[TN + 1], float (*Rq)[TN + 1],
   }
   // rowsum (and the per-row sums of squares): one sum over pbn columns per
   // (row, column tile), on p lanes
-  const int tasks = TM * nct, p = lanes_per_task<kLanes, NT>(tasks);
+  const int tasks = TM * nct, p = lanes_per_task(tasks);
   const int lane = tid % p;
   for (int base = 0; base < tasks; base += NT / p) {
     const int idx = base + tid / p;
@@ -219,17 +202,18 @@ struct DetectArgs {
   int weighted;
   int* flag;
   float* score;
-  int* chunk_counters;   // bf16 route: one per chunk, zero on entry and exit
+  int* chunk_counters;   // one per chunk, zero on entry and exit
 };
 
-template <int TM, int TN, int NT, bool kLanes>
+template <int TM, int TN>
 __device__ void tile_epilogue(float (*Cs)[TN + 1], float (*)[TN + 1],
                               int row0, int col0, int n, int m,
                               const DetectArgs& a) {
+  constexpr int NT = kWgThreads;
   const int seg = a.seg, nseg = TN / seg;
   const int segs_total = m / seg;
   const size_t plane = (size_t)n * segs_total;
-  const int tasks = TM * nseg, p = lanes_per_task<kLanes, NT>(tasks);
+  const int tasks = TM * nseg, p = lanes_per_task(tasks);
   const int lane = threadIdx.x % p;
   for (int base = 0; base < tasks; base += NT / p) {
     const int idx = base + threadIdx.x / p;
@@ -256,15 +240,15 @@ __device__ void tile_epilogue(float (*Cs)[TN + 1], float (*)[TN + 1],
   }
 }
 
-// The compare of chunk (a, b) by a block of NT threads: the chunk's row
+// The compare of chunk (a, b) by the block: the chunk's row
 // segments summed in a fixed order (each thread a fixed strided subset,
 // then a fixed tree in red), then the CoC-D compare of _detect_kernel:
 //   tau5 = tau_a * sqrt(sumsq) + tau_b * absdot + 1e-30,
 // s6 / s7 against tau5 * (rb - 1) / tau5 * (cb - 1) when weighted, NaN or
 // Inf on either side flags the chunk with score inf.
-template <int NT>
 __device__ void compare_chunk(const DetectArgs& d, int n, int m, int a,
-                              int b, float (*red)[NT]) {
+                              int b, float (*red)[kWgThreads]) {
+  constexpr int NT = kWgThreads;
   const int tid = threadIdx.x, mb = m / d.cb;
   const int segs_total = m / d.seg, spc = d.cb / d.seg;  // per chunk row
   const size_t plane = (size_t)n * segs_total;
@@ -310,162 +294,11 @@ __device__ void compare_chunk(const DetectArgs& d, int n, int m, int a,
   __syncthreads();   // red is free again
 }
 
-template <int TM, int TN, typename Args, int NT = kThreads,
-          bool kLanes = false>
-__device__ __forceinline__ void run_epilogue(float (*Cs)[TN + 1],
-                                             float (*Rq)[TN + 1], int row0,
-                                             int col0, int n, int m,
-                                             const Args& a) {
-  tile_epilogue<TM, TN, NT, kLanes>(Cs, Rq, row0, col0, n, m, a);
-}
-
 // ---------------------------------------------------------------- mainloops
 
-constexpr int BM = 64, BN = 64, BK = 16;
-
-template <typename T, bool kWT, typename Args>
-__global__ void __launch_bounds__(kThreads)
-gemm_general_kernel(const T* __restrict__ D, const T* __restrict__ W,
-                    T* __restrict__ O, int n, int k, int m, Args args) {
-  __shared__ float As[BK][BM + 4];   // D tile, transposed: As[kk][row]
-  __shared__ float Bs[BK][BN + 1];   // W tile: Bs[kk][col]
-  __shared__ float Cs[BM][BN + 1];   // the finished output tile
-  __shared__ float Rq[BM][BN + 1];   // per (row, column tile) sums of squares
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += kThreads) {
-      const int r = idx / BK, kk = idx % BK;
-      const int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < n && gk < k) ? to_f(D[(size_t)gr * k + gk]) : 0.f;
-    }
-    for (int idx = tid; idx < BK * BN; idx += kThreads) {
-      // consecutive threads walk the contiguous axis of W's layout
-      const int kk = kWT ? idx % BK : idx / BN;
-      const int c = kWT ? idx / BK : idx % BN;
-      const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < k && gc < m) ? load_w<T, kWT>(W, gk, gc, k, m) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // store O and stage the tile; masked elements are exact zeros, so every
-  // sum takes only elements of O
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      const int gr = row0 + r, gc = col0 + c;
-      const bool valid = gr < n && gc < m;
-      Cs[r][c] = valid ? acc[i][j] : 0.f;
-      if (valid) O[(size_t)gr * m + gc] = from_f<T>(acc[i][j]);
-    }
-  }
-  __syncthreads();
-  run_epilogue<BM, BN, Args>(Cs, Rq, row0, col0, n, m, args);
-}
-
-constexpr int SM = 16, SN = 32, SKC = 128;   // skinny tile and K chunk
-constexpr int kWarps = kThreads / 32;
-
-template <typename T, bool kWT, typename Args>
-__global__ void __launch_bounds__(kThreads)
-gemm_skinny_kernel(const T* __restrict__ D, const T* __restrict__ W,
-                   T* __restrict__ O, int n, int k, int m, Args args) {
-  __shared__ __align__(16) float Ds[SM][SKC];   // a K chunk of all of D
-  __shared__ float Ws[SKC][SN + 1];             // a K chunk of W's columns
-  __shared__ float Ps[kWarps][SM][SN + 1];      // each warp's partial tile
-  __shared__ float Cs[SM][SN + 1];
-  __shared__ float Rq[SM][SN + 1];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int col0 = blockIdx.x * SN;
-
-  float acc[SM];
-#pragma unroll
-  for (int r = 0; r < SM; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += SKC) {
-    const int kc = min(SKC, k - k0);
-    for (int idx = tid; idx < SM * SKC; idx += kThreads) {
-      const int r = idx / SKC, kk = idx % SKC;
-      Ds[r][kk] = (r < n && kk < kc) ? to_f(D[(size_t)r * k + k0 + kk]) : 0.f;
-    }
-    for (int idx = tid; idx < SKC * SN; idx += kThreads) {
-      const int kk = kWT ? idx % SKC : idx / SN;
-      const int c = kWT ? idx / SKC : idx % SN;
-      const int gc = col0 + c;
-      Ws[kk][c] = (kk < kc && gc < m) ? load_w<T, kWT>(W, k0 + kk, gc, k, m)
-                                      : 0.f;
-    }
-    __syncthreads();
-    // warp w takes the groups of 4 consecutive k at 4w, 4w + 32, ...
-#pragma unroll 2
-    for (int kk = 4 * warp; kk < kc; kk += 4 * kWarps) {
-      float wv[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) wv[q] = Ws[kk + q][lane];
-#pragma unroll
-      for (int r = 0; r < SM; ++r) {
-        const float4 d = *reinterpret_cast<const float4*>(&Ds[r][kk]);
-        acc[r] = fmaf(d.x, wv[0], acc[r]);
-        acc[r] = fmaf(d.y, wv[1], acc[r]);
-        acc[r] = fmaf(d.z, wv[2], acc[r]);
-        acc[r] = fmaf(d.w, wv[3], acc[r]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < SM; ++r) Ps[warp][r][lane] = acc[r];
-  __syncthreads();
-  // sum the warps' partial tiles in warp order; store O and stage the tile
-  for (int idx = tid; idx < SM * SN; idx += kThreads) {
-    const int r = idx / SN, cc = idx % SN;
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += Ps[w][r][cc];
-    const bool valid = r < n && col0 + cc < m;
-    Cs[r][cc] = valid ? s : 0.f;
-    if (valid) O[(size_t)r * m + col0 + cc] = from_f<T>(s);
-  }
-  __syncthreads();
-  run_epilogue<SM, SN, Args>(Cs, Rq, 0, col0, n, m, args);
-}
-
-// The f32 block tile of an n-row product: 16 x 32 for N <= 16, else 64 x
-// 64.
-constexpr int tile_m(int n) { return n <= SM ? SM : BM; }
-constexpr int tile_n(int n) { return n <= SM ? SN : BN; }
-
-// ------------------------------------------------ the bf16 wgmma mainloop
-
-constexpr int kWgThreads = 128;   // one warpgroup
-constexpr int WM = 64;            // output columns per block: wgmma's M
-constexpr int WK = 64;            // K per pipeline stage
+constexpr int WK = 64;            // bf16 K per pipeline stage (128 bytes)
+constexpr int WKF = 32;           // f32 K per pipeline stage (128 bytes)
+constexpr int kPitch = WKF + 4;   // f32 floats per staged K-major row
 constexpr int kChunks = WK / 8;   // 16-byte chunks of a K-major row's stage
 constexpr int kRowGroup = 128 * kChunks;   // bytes of 8 K-major rows
 constexpr int kStages = 4;        // the shared-memory ring
@@ -475,19 +308,24 @@ constexpr int kMaxSplits = 8;     // a split tile is one cluster: portable size
 constexpr int kPushRows = 128;    // splits x rows up to which ranks push
 constexpr int kMaxDevices = 64;
 
-__host__ __device__ constexpr int wg_stage_bytes(int rows) {
-  return (WM + rows) * WK * 2;
+// K per stage: 128 bytes of an operand row
+template <typename T> __host__ __device__ constexpr int k_step() {
+  return 128 / (int)sizeof(T);
+}
+// one ring stage: W^T's 64 columns, then D's rows (f32: rows of kPitch)
+template <typename T> __host__ __device__ constexpr int stage_bytes(int rows) {
+  return sizeof(T) == 2 ? (WM + rows) * WK * 2 : (WM + rows) * kPitch * 4;
 }
 // after the mainloop: a split's tile, the fp32 tile, the epilogue's
 // scratch and the chunk compare's (red, done)
-__host__ __device__ constexpr int wg_tail_bytes(int rows) {
+__host__ __device__ constexpr int tail_bytes(int rows) {
   return (rows * (3 * WM + 2) + 5 * kWgThreads) * 4;
 }
 // the ring, reused after the mainloop for the tail
-__host__ __device__ constexpr int wg_smem_bytes(int rows) {
-  return kStages * wg_stage_bytes(rows) > wg_tail_bytes(rows)
-             ? kStages * wg_stage_bytes(rows)
-             : wg_tail_bytes(rows);
+template <typename T> __host__ __device__ constexpr int smem_bytes(int rows) {
+  return kStages * stage_bytes<T>(rows) > tail_bytes(rows)
+             ? kStages * stage_bytes<T>(rows)
+             : tail_bytes(rows);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -692,6 +530,228 @@ __device__ __forceinline__ void load_stage(const __nv_bfloat16* D,
   }
 }
 
+// One 16-byte chunk of shared memory from the 4 floats at src + off, of
+// which `avail` exist (ok false: none): zeros past them. vec: a cp.async
+// of 16 aligned bytes that exist entirely or not at all; otherwise masked
+// 4-byte loads and one shared store.
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const float* src,
+                                           bool ok, size_t off, int avail,
+                                           bool vec) {
+  ok = ok && avail > 0;
+  if (vec) {
+    const void* p = ok ? (const void*)(src + off) : (const void*)src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(p), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = ok && e < avail ? src[off + e] : 0.f;
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+                 "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3])
+                 : "memory");
+  }
+}
+
+// Stage the K slice [k0, k0 + WKF) of the block's f32 operands at sa: W,
+// then D's rows (rows of kPitch floats, 16-byte aligned, at sa + 4 WM
+// kPitch). W^T of the tied head lands K-major like D (a row per column);
+// row-major W lands as Ws[k][64 columns]. Consecutive threads copy
+// consecutive 16 bytes of a row.
+template <int ROWS, bool kWT>
+__device__ __forceinline__ void load_stage(const float* D, const float* W,
+                                           int n, int k, int m, int row0,
+                                           int col0, int k0, uint32_t sa,
+                                           bool vec) {
+  constexpr int kRowChunks = WKF / 4;
+  if (kWT) {
+    for (int q = threadIdx.x; q < WM * kRowChunks; q += kWgThreads) {
+      const int c = q / kRowChunks, kk = q % kRowChunks * 4, gk = k0 + kk;
+      copy_chunk(sa + 4 * (c * kPitch + kk), W, col0 + c < m,
+                 (size_t)(col0 + c) * k + gk, k - gk, vec);
+    }
+  } else {
+    for (int q = threadIdx.x; q < WKF * (WM / 4); q += kWgThreads) {
+      const int kk = q / (WM / 4), c = q % (WM / 4) * 4;
+      const int gk = k0 + kk, gc = col0 + c;
+      copy_chunk(sa + 4 * (kk * WM + c), W, gk < k, (size_t)gk * m + gc,
+                 m - gc, vec);
+    }
+  }
+  const uint32_t sb = sa + 4 * WM * kPitch;
+  for (int q = threadIdx.x; q < ROWS * kRowChunks; q += kWgThreads) {
+    const int r = q / kRowChunks, kk = q % kRowChunks * 4, gk = k0 + kk;
+    copy_chunk(sb + 4 * (r * kPitch + kk), D, row0 + r < n,
+               (size_t)(row0 + r) * k + gk, k - gk, vec);
+  }
+}
+
+// One f32 stage's sums into `part`: columns tx + 16 j (j < 4) by rows
+// ty + 8 i (i < ROWS / 8), part[4 i + j], each over the stage's 32 K in
+// order by fmaf. ws/ds: the stage's W and D as load_stage lays them out.
+template <int ROWS, bool kWT>
+__device__ __forceinline__ void fma_stage(const float* ws, const float* ds,
+                                          int tx, int ty,
+                                          float (&part)[ROWS / 2]) {
+#pragma unroll
+  for (int k4 = 0; k4 < WKF; k4 += 4) {
+    float w[4][4];   // w[k][j]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (kWT) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            ws + (tx + 16 * j) * kPitch + k4);
+        w[0][j] = x.x;
+        w[1][j] = x.y;
+        w[2][j] = x.z;
+        w[3][j] = x.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) w[q][j] = ws[(k4 + q) * WM + tx + 16 * j];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ROWS / 8; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(ds + (ty + 8 * i) * kPitch + k4);
+      const float d[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          part[4 * i + j] = fmaf(d[q], w[q][j], part[4 * i + j]);
+    }
+  }
+}
+
+// The bf16 mainloop: the K tiles [kt0, kt0 + nkt) through the ring, each
+// stage's sum by wgmma, added into acc in fp32. The caller waits for the
+// last copies.
+template <int ROWS, bool kWT>
+__device__ __forceinline__ void mainloop(const __nv_bfloat16* D,
+                                         const __nv_bfloat16* W, int n,
+                                         int k, int m, int row0, int col0,
+                                         int kt0, int nkt, bool vec,
+                                         unsigned char* smem,
+                                         float (&acc)[ROWS / 2]) {
+  constexpr int kStage = stage_bytes<__nv_bfloat16>(ROWS);
+  const uint32_t ring = smem_addr(smem);
+  // part: one K stage's sum, in wgmma's accumulators; acc: the running
+  // sum, by fp32 adds (round to nearest)
+  float part[ROWS / 2];
+#pragma unroll
+  for (int i = 0; i < ROWS / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nkt)
+      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + s) * WK,
+                            ring + s * kStage, vec);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    // stage i has landed for every thread, and every warp is done with the
+    // stage the next load overwrites (its wgmma were waited for)
+    cp_async_wait<kStages - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int j = i + kStages - 1;
+    if (j < nkt)
+      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + j) * WK,
+                            ring + j % kStages * kStage, vec);
+    cp_async_commit();
+    const uint32_t sa = ring + i % kStages * kStage, sb = sa + WM * WK * 2;
+    pin(part);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < WK / 16; ++s) {
+      const uint64_t da = kWT ? gmma_desc(sa + 256 * s, 128, kRowGroup)
+                              : gmma_desc(sa + 2048 * s, 1024, 128);
+      wgmma_bf16<kWT ? 0 : 1>(part, da,
+                              gmma_desc(sb + 256 * s, 128, kRowGroup),
+                              s > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(part);
+#pragma unroll
+    for (int v = 0; v < ROWS / 2; ++v) acc[v] += part[v];
+  }
+}
+
+// The f32 mainloop: the same ring of K tiles; each stage's 32 products are
+// summed by fma_stage in fresh registers and added into acc, so an element
+// of O is a sum of stage sums (IEEE fp32 throughout): its rounding error
+// grows with sqrt(K / 32) + sqrt(32) terms, not sqrt(K), as blocked sums
+// in cuBLAS do.
+template <int ROWS, bool kWT>
+__device__ __forceinline__ void mainloop(const float* D, const float* W,
+                                         int n, int k, int m, int row0,
+                                         int col0, int kt0, int nkt, bool vec,
+                                         unsigned char* smem,
+                                         float (&acc)[ROWS / 2]) {
+  constexpr int kStage = stage_bytes<float>(ROWS);
+  const uint32_t ring = smem_addr(smem);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float part[ROWS / 2];
+#pragma unroll
+  for (int i = 0; i < ROWS / 2; ++i) acc[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nkt)
+      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + s) * WKF,
+                            ring + s * kStage, vec);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    // stage i has landed for every thread, and every thread is done with
+    // the stage the next load overwrites
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int j = i + kStages - 1;
+    if (j < nkt)
+      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + j) * WKF,
+                            ring + j % kStages * kStage, vec);
+    cp_async_commit();
+    const float* ws =
+        reinterpret_cast<const float*>(smem + i % kStages * kStage);
+#pragma unroll
+    for (int v = 0; v < ROWS / 2; ++v) part[v] = 0.f;
+    fma_stage<ROWS, kWT>(ws, ws + WM * kPitch, tx, ty, part);
+#pragma unroll
+    for (int v = 0; v < ROWS / 2; ++v) acc[v] += part[v];
+  }
+}
+
+// The tile element (r, c) that accumulator v of thread tid holds: wgmma's
+// fragment (bf16), fma_stage's (f32)
+__device__ __forceinline__ void frag_rc(const __nv_bfloat16*, int v, int tid,
+                                        int& r, int& c) {
+  const int warp = tid / 32, lane = tid % 32;
+  c = 16 * warp + lane / 4 + 8 * (v / 2 % 2);
+  r = 2 * (lane % 4) + v % 2 + 8 * (v / 4);
+}
+__device__ __forceinline__ void frag_rc(const float*, int v, int tid, int& r,
+                                        int& c) {
+  r = tid / 16 + 8 * (v / 4);
+  c = tid % 16 + 16 * (v % 4);
+}
+
+// 8 bf16 or 4 floats of O (16 bytes), rounded once from the fp32 tile
+__device__ __forceinline__ void store16(__nv_bfloat16* o, const float* x) {
+  uint32_t u[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * e], x[2 * e + 1]);
+    u[e] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(o) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+__device__ __forceinline__ void store16(float* o, const float* x) {
+  *reinterpret_cast<float4*>(o) = make_float4(x[0], x[1], x[2], x[3]);
+}
+
 // After a tile's epilogue: nothing more for the partials.
 template <int ROWS>
 __device__ __forceinline__ void finish_chunks(const PartialsArgs&, int, int,
@@ -733,7 +793,7 @@ __device__ void finish_chunks(const DetectArgs& d, int row0, int col0, int n,
     for (int j = 0; j < min(kWgThreads, count - base); ++j) {
       const int at = done[j];
       if (at < 0) continue;
-      compare_chunk<kWgThreads>(d, n, m, at / mb, at % mb, red);
+      compare_chunk(d, n, m, at / mb, at % mb, red);
       if (tid == 0) d.chunk_counters[at] = 0;
     }
     __syncthreads();
@@ -741,71 +801,31 @@ __device__ void finish_chunks(const DetectArgs& d, int row0, int col0, int n,
 }
 
 // Block (x, y, z): output columns [64 x, 64 x + 64), rows [ROWS y, ROWS y +
-// ROWS), K tiles [per z, per z + per) of WK. With splits > 1 the launch
-// makes the `splits` blocks of a tile one cluster (rank z): each leaves its
-// fp32 tile in its shared memory, every rank sums a share of the elements
-// over all ranks in rank order into rank 0's tile (distributed shared
-// memory), and rank 0 runs the epilogue.
-template <int ROWS, bool kWT, typename Args>
+// ROWS), K tiles [per z, per z + per) of k_step<T>(). With splits > 1 the
+// launch makes the `splits` blocks of a tile one cluster (rank z): each
+// leaves its fp32 tile in its shared memory, every rank sums a share of the
+// elements over all ranks in rank order into rank 0's tile (distributed
+// shared memory), and rank 0 runs the epilogue.
+template <typename T, int ROWS, bool kWT, typename Args>
 __global__ void __launch_bounds__(kWgThreads)
-gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ D,
-                  const __nv_bfloat16* __restrict__ W,
-                  __nv_bfloat16* __restrict__ O, int n, int k, int m,
-                  int per, int splits, int vec, Args args) {
+gemm_kernel(const T* __restrict__ D, const T* __restrict__ W,
+            T* __restrict__ O, int n, int k, int m, int per, int splits,
+            int vec, Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kStage = wg_stage_bytes(ROWS);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int kStep = k_step<T>();
+  const int tid = threadIdx.x;
   const int col0 = blockIdx.x * WM, row0 = blockIdx.y * ROWS;
   const int z = blockIdx.z, kt0 = z * per;
-  const int nkt = min(per, (k > WK ? (k + WK - 1) / WK : 1) - kt0);
-  const uint32_t ring = smem_addr(smem);
+  const int nkt = min(per, (k > kStep ? (k + kStep - 1) / kStep : 1) - kt0);
   // a pushing split stores into rank 0's shared memory, so every block of
   // the cluster must have started: the barrier's first phase, waited for
   // after the mainloop
   const bool push = splits > 1 && splits * ROWS <= kPushRows;
   if (push) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // part: one K stage's sum, in wgmma's accumulators; acc: the running
-  // sum, by fp32 adds (round to nearest)
-  float acc[ROWS / 2], part[ROWS / 2];
-#pragma unroll
-  for (int i = 0; i < ROWS / 2; ++i) acc[i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nkt)
-      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + s) * WK,
-                            ring + s * kStage, vec);
-    cp_async_commit();
-  }
-  for (int i = 0; i < nkt; ++i) {
-    // stage i has landed for every thread, and every warp is done with the
-    // stage the next load overwrites (its wgmma were waited for)
-    cp_async_wait<kStages - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
-    const int j = i + kStages - 1;
-    if (j < nkt)
-      load_stage<ROWS, kWT>(D, W, n, k, m, row0, col0, (kt0 + j) * WK,
-                            ring + j % kStages * kStage, vec);
-    cp_async_commit();
-    const uint32_t sa = ring + i % kStages * kStage, sb = sa + WM * WK * 2;
-    pin(part);
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < WK / 16; ++s) {
-      const uint64_t da = kWT ? gmma_desc(sa + 256 * s, 128, kRowGroup)
-                              : gmma_desc(sa + 2048 * s, 1024, 128);
-      wgmma_bf16<kWT ? 0 : 1>(part, da,
-                              gmma_desc(sb + 256 * s, 128, kRowGroup),
-                              s > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    pin(part);
-#pragma unroll
-    for (int v = 0; v < ROWS / 2; ++v) acc[v] += part[v];
-  }
+  float acc[ROWS / 2];
+  mainloop<ROWS, kWT>(D, W, n, k, m, row0, col0, kt0, nkt, vec != 0, smem,
+                      acc);
   cp_async_wait<0>();
   __syncthreads();
 
@@ -818,20 +838,20 @@ gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ D,
   if (splits == 1) {
 #pragma unroll
     for (int v = 0; v < ROWS / 2; ++v) {
-      const int c = 16 * warp + lane / 4 + 8 * (v / 2 % 2);
-      const int r = 2 * (lane % 4) + v % 2 + 8 * (v / 4);
+      int r, c;
+      frag_rc(D, v, tid, r, c);
       Cs[r][c] = row0 + r < n && col0 + c < m ? acc[v] : 0.f;
     }
   } else if (push) {
     // every rank stores its tile into rank 0's receiving area (past the
     // ring and the tail) and leaves; rank 0 sums them in rank order
-    float* recv = reinterpret_cast<float*>(smem + wg_smem_bytes(ROWS));
+    float* recv = reinterpret_cast<float*>(smem + smem_bytes<T>(ROWS));
     asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
     float* to = cg::this_cluster().map_shared_rank(recv, 0) + z * ROWS * WM;
 #pragma unroll
     for (int v = 0; v < ROWS / 2; ++v) {
-      const int c = 16 * warp + lane / 4 + 8 * (v / 2 % 2);
-      const int r = 2 * (lane % 4) + v % 2 + 8 * (v / 4);
+      int r, c;
+      frag_rc(D, v, tid, r, c);
       to[r * WM + c] = acc[v];
     }
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -855,8 +875,8 @@ gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ D,
     // 0's tile
 #pragma unroll
     for (int v = 0; v < ROWS / 2; ++v) {
-      const int c = 16 * warp + lane / 4 + 8 * (v / 2 % 2);
-      const int r = 2 * (lane % 4) + v % 2 + 8 * (v / 4);
+      int r, c;
+      frag_rc(D, v, tid, r, c);
       Ps[r * WM + c] = acc[v];
     }
     cg::cluster_group cluster = cg::this_cluster();
@@ -882,56 +902,47 @@ gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ D,
     if (z != 0) return;
   }
   __syncthreads();
-  // O rounded once to bf16: 8 columns (16 bytes) a thread where the tile's
-  // rows lie whole and aligned in O, else element by element
-  if (col0 + WM <= m && m % 8 == 0
+  // O rounded once to its type: 16 bytes a thread where the tile's rows
+  // lie whole and aligned in O, else element by element
+  constexpr int kV = 16 / (int)sizeof(T);
+  if (col0 + WM <= m && m % kV == 0
       && reinterpret_cast<uintptr_t>(O) % 16 == 0) {
-    for (int i8 = tid; i8 < ROWS * WM / 8; i8 += kWgThreads) {
-      const int r = i8 / (WM / 8), c = i8 % (WM / 8) * 8;
-      if (row0 + r >= n) continue;
-      uint32_t u[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 h =
-            __floats2bfloat162_rn(Cs[r][c + 2 * e], Cs[r][c + 2 * e + 1]);
-        u[e] = *reinterpret_cast<const uint32_t*>(&h);
-      }
-      *reinterpret_cast<uint4*>(O + (size_t)(row0 + r) * m + col0 + c) =
-          make_uint4(u[0], u[1], u[2], u[3]);
+    for (int iv = tid; iv < ROWS * WM / kV; iv += kWgThreads) {
+      const int r = iv / (WM / kV), c = iv % (WM / kV) * kV;
+      if (row0 + r < n)
+        store16(O + (size_t)(row0 + r) * m + col0 + c, &Cs[r][c]);
     }
   } else {
     for (int idx = tid; idx < ROWS * WM; idx += kWgThreads) {
       const int r = idx / WM, c = idx % WM;
       if (row0 + r < n && col0 + c < m)
-        O[(size_t)(row0 + r) * m + col0 + c] = __float2bfloat16_rn(Cs[r][c]);
+        O[(size_t)(row0 + r) * m + col0 + c] = from_f<T>(Cs[r][c]);
     }
   }
-  run_epilogue<ROWS, WM, Args, kWgThreads, true>(Cs, Rq, row0, col0, n, m,
-                                                 args);
+  tile_epilogue<ROWS, WM>(Cs, Rq, row0, col0, n, m, args);
   finish_chunks<ROWS>(args, row0, col0, n, m, &Rq[ROWS][0]);
 }
 
 // ------------------------------------------------------------ the tiling
 
 // How an n-row product of dtype (0 f32, 1 bf16) is launched: block tile
-// tm x tn, K split over `splits` blocks of `per` WK-tiles each (bf16),
-// swapped when O^T = W^T D^T is what the blocks compute. This is the
-// rule's one home: both entry points launch from it, so each accumulates
-// every element of O in the same order, and the wrappers read it through
-// repro_abft_tiling.
+// tm x tn of O (computed as O^T), K split over `splits` blocks of `per`
+// K tiles each. This is the rule's one home: both entry points launch from
+// it, so each accumulates every element of O in the same order, and the
+// wrappers read it through repro_abft_tiling.
 struct Tiling {
-  int tm, tn, splits, per, swapped;
+  int tm, tn, splits, per;
 };
 
 Tiling choose_tiling(int n, int k, int m, int dtype) {
-  if (dtype != 1) return {tile_m(n), tile_n(n), 1, 0, 0};
   int tm = 8;
   while (tm < n && tm < kMaxRows) tm *= 2;
   const int tiles = (m + WM - 1) / WM * ((n + tm - 1) / tm);
-  const int kt = k > WK ? (k + WK - 1) / WK : 1;
+  const int wk = dtype == 1 ? WK : WKF;
+  const int kt = k > wk ? (k + wk - 1) / wk : 1;
   const int want = tiles >= kSMs ? 1 : min(kMaxSplits, (kSMs + tiles - 1) / tiles);
   const int per = (kt + want - 1) / want;
-  return {tm, WM, (kt + per - 1) / per, per, 1};
+  return {tm, WM, (kt + per - 1) / per, per};
 }
 
 // The column segment the detect pass's blocks sum rows over: the largest
@@ -943,28 +954,12 @@ int detect_seg(int tn, int cb) {
   return seg;
 }
 
-template <typename T, bool kWT, typename Args>
-void launch_gemm(const void* d, const void* w, void* o, int n, int k, int m,
-                 const Args& args, cudaStream_t s) {
-  const T* D = static_cast<const T*>(d);
-  const T* W = static_cast<const T*>(w);
-  T* O = static_cast<T*>(o);
-  if (tile_m(n) == SM) {
-    gemm_skinny_kernel<T, kWT, Args>
-        <<<(m + SN - 1) / SN, kThreads, 0, s>>>(D, W, O, n, k, m, args);
-  } else {
-    dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM);
-    gemm_general_kernel<T, kWT, Args>
-        <<<grid, kThreads, 0, s>>>(D, W, O, n, k, m, args);
-  }
-}
-
-template <int ROWS, bool kWT, typename Args>
-int launch_wgmma(const void* d, const void* w, void* o, int n, int k, int m,
-                 const Tiling& t, const Args& args, cudaStream_t s) {
+template <typename T, int ROWS, bool kWT, typename Args>
+int launch_gemm(const void* d, const void* w, void* o, int n, int k, int m,
+                const Tiling& t, const Args& args, cudaStream_t s) {
   // the ring and tail, and rank 0's receiving area when the splits push
-  constexpr int most = wg_smem_bytes(ROWS) + kPushRows * WM * 4;
-  const int bytes = wg_smem_bytes(ROWS)
+  constexpr int most = smem_bytes<T>(ROWS) + kPushRows * WM * 4;
+  const int bytes = smem_bytes<T>(ROWS)
                     + (t.splits > 1 && t.splits * ROWS <= kPushRows
                            ? t.splits * ROWS * WM * 4 : 0);
   // more than 48 KB of shared memory only once asked for, on each device
@@ -974,13 +969,14 @@ int launch_wgmma(const void* d, const void* w, void* o, int n, int k, int m,
   if (e != cudaSuccess) return (int)e;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!sized[dev]) {
-    e = cudaFuncSetAttribute(gemm_wgmma_kernel<ROWS, kWT, Args>,
+    e = cudaFuncSetAttribute(gemm_kernel<T, ROWS, kWT, Args>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              most);
     if (e != cudaSuccess) return (int)e;
     sized[dev] = true;
   }
-  const bool vec = k % 8 == 0 && (kWT || m % 8 == 0)
+  constexpr int kV = 16 / (int)sizeof(T);   // elements per 16-byte copy
+  const bool vec = k % kV == 0 && (kWT || m % kV == 0)
                    && reinterpret_cast<uintptr_t>(d) % 16 == 0
                    && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   cudaLaunchConfig_t cfg = {};
@@ -996,21 +992,20 @@ int launch_wgmma(const void* d, const void* w, void* o, int n, int k, int m,
   cfg.attrs = cluster;
   cfg.numAttrs = t.splits > 1 ? 1 : 0;
   return (int)cudaLaunchKernelEx(
-      &cfg, gemm_wgmma_kernel<ROWS, kWT, Args>,
-      static_cast<const __nv_bfloat16*>(d),
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(o),
-      n, k, m, t.per, t.splits, vec ? 1 : 0, args);
+      &cfg, gemm_kernel<T, ROWS, kWT, Args>, static_cast<const T*>(d),
+      static_cast<const T*>(w), static_cast<T*>(o), n, k, m, t.per, t.splits,
+      vec ? 1 : 0, args);
 }
 
-template <bool kWT, typename Args>
-int dispatch_bf16(const void* d, const void* w, void* o, int n, int k, int m,
+template <typename T, bool kWT, typename Args>
+int dispatch_rows(const void* d, const void* w, void* o, int n, int k, int m,
                   const Tiling& t, const Args& args, cudaStream_t s) {
   switch (t.tm) {
-    case 8: return launch_wgmma<8, kWT>(d, w, o, n, k, m, t, args, s);
-    case 16: return launch_wgmma<16, kWT>(d, w, o, n, k, m, t, args, s);
-    case 32: return launch_wgmma<32, kWT>(d, w, o, n, k, m, t, args, s);
-    case 64: return launch_wgmma<64, kWT>(d, w, o, n, k, m, t, args, s);
-    case 128: return launch_wgmma<128, kWT>(d, w, o, n, k, m, t, args, s);
+    case 8: return launch_gemm<T, 8, kWT>(d, w, o, n, k, m, t, args, s);
+    case 16: return launch_gemm<T, 16, kWT>(d, w, o, n, k, m, t, args, s);
+    case 32: return launch_gemm<T, 32, kWT>(d, w, o, n, k, m, t, args, s);
+    case 64: return launch_gemm<T, 64, kWT>(d, w, o, n, k, m, t, args, s);
+    case 128: return launch_gemm<T, 128, kWT>(d, w, o, n, k, m, t, args, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1020,38 +1015,27 @@ int dispatch(int dtype, int w_layout, const void* d, const void* w, void* o,
              int n, int k, int m, const Tiling& t, const Args& args,
              cudaStream_t s) {
   if (dtype == 0 && w_layout == 0)
-    launch_gemm<float, false>(d, w, o, n, k, m, args, s);
-  else if (dtype == 0 && w_layout == 1)
-    launch_gemm<float, true>(d, w, o, n, k, m, args, s);
-  else if (dtype == 1 && w_layout == 0)
-    return dispatch_bf16<false>(d, w, o, n, k, m, t, args, s);
-  else if (dtype == 1 && w_layout == 1)
-    return dispatch_bf16<true>(d, w, o, n, k, m, t, args, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// The f32 route's second launch: one block per detection chunk runs
-// compare_chunk on the segments the GEMM's blocks wrote.
-__global__ void __launch_bounds__(kThreads)
-detect_compare_kernel(int n, int m, DetectArgs d) {
-  __shared__ float red[4][kThreads];
-  compare_chunk<kThreads>(d, n, m, blockIdx.y, blockIdx.x, red);
+    return dispatch_rows<float, false>(d, w, o, n, k, m, t, args, s);
+  if (dtype == 0 && w_layout == 1)
+    return dispatch_rows<float, true>(d, w, o, n, k, m, t, args, s);
+  if (dtype == 1 && w_layout == 0)
+    return dispatch_rows<__nv_bfloat16, false>(d, w, o, n, k, m, t, args, s);
+  if (dtype == 1 && w_layout == 1)
+    return dispatch_rows<__nv_bfloat16, true>(d, w, o, n, k, m, t, args, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // The tiling an n-row product of dtype (0 float32, 1 bfloat16) with K = k
 // and M = m launches with: the block tile (tm rows x tn columns of O), the
-// K split (splits blocks per tile, one cluster; > 1 only for bf16 when the
-// tiles cannot fill the card), swapped (1: the blocks compute O^T = W^T
-// D^T) and, for a detection chunk width cb > 0, the detect pass's row
-// segment (seg; repro_abft_matmul_detect's part then holds 3 * n * (m /
-// seg) floats; 0 when cb is 0). The wrappers size their buffers from it.
+// K split (splits blocks per tile, one cluster, > 1 when the tiles cannot
+// fill the card) and, for a detection chunk width cb > 0, the detect
+// pass's row segment (seg; repro_abft_matmul_detect's part then holds 3 *
+// n * (m / seg) floats; 0 when cb is 0). The wrappers size their buffers
+// from it.
 extern "C" int repro_abft_tiling(int n, int k, int m, int dtype, int cb,
-                                 int* tm, int* tn, int* seg, int* splits,
-                                 int* swapped) {
+                                 int* tm, int* tn, int* seg, int* splits) {
   if (n < 1 || k < 0 || m < 1 || cb < 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Tiling t = choose_tiling(n, k, m, dtype);
@@ -1059,7 +1043,6 @@ extern "C" int repro_abft_tiling(int n, int k, int m, int dtype, int cb,
   *tn = t.tn;
   *seg = cb > 0 ? detect_seg(t.tn, cb) : 0;
   *splits = t.splits;
-  *swapped = t.swapped;
   return 0;
 }
 
@@ -1088,16 +1071,13 @@ extern "C" int repro_abft_matmul(const void* d, const void* w, void* o,
   return err ? err : (int)cudaGetLastError();
 }
 
-// O = D @ W as above plus the CoC-D compare per (rb x cb) chunk: c5, c6,
-// c7 and absdot are float32 (n / rb, m / cb); flag (int32) and score
-// (float32) likewise. part is float32 scratch of 3 * n * (m / seg)
-// elements, seg as repro_abft_tiling gives it. bfloat16 runs the compare in
-// the GEMM's own launch and takes counters, (n / rb) * (m / cb) int32 that
-// are zero and that no other launch uses until this one has ended (the
-// kernel leaves them zero); float32 launches a second kernel for the
-// compare and takes no counters. rb must divide n and cb must
-// divide m. Returns the first error of the launches, or
-// cudaGetLastError().
+// O = D @ W as above plus the CoC-D compare per (rb x cb) chunk, in one
+// launch: c5, c6, c7 and absdot are float32 (n / rb, m / cb); flag (int32)
+// and score (float32) likewise. part is float32 scratch of 3 * n * (m /
+// seg) elements, seg as repro_abft_tiling gives it; counters are (n / rb)
+// * (m / cb) int32 that are zero and that no other launch uses until this
+// one has ended (the kernel leaves them zero). rb must divide n and cb must
+// divide m. Returns the launch's error, or cudaGetLastError().
 extern "C" int repro_abft_matmul_detect(
     const void* d, const void* w, void* o, int dtype, int w_layout, int n,
     int k, int m, int rb, int cb, const float* c5, const float* c6,
@@ -1108,22 +1088,17 @@ extern "C" int repro_abft_matmul_detect(
       || cb < 1 || n % rb || m % cb)
     return (int)cudaErrorInvalidValue;
   const Tiling t = choose_tiling(n, k, m, dtype);
-  cudaStream_t s = (cudaStream_t)stream;
   const DetectArgs args{rb,     cb,    detect_seg(t.tn, cb), part, c5, c6,
                         c7,     absdot, tau_a, tau_b, weighted, flag, score,
                         counters};
-  int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t, args, s);
-  if (err) return err;
-  err = (int)cudaGetLastError();
-  if (err || dtype == 1) return err;
-  detect_compare_kernel<<<dim3(m / cb, n / rb), kThreads, 0, s>>>(n, m,
-                                                                    args);
-  return (int)cudaGetLastError();
+  const int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t, args,
+                           (cudaStream_t)stream);
+  return err ? err : (int)cudaGetLastError();
 }
 
 // Whether `stream` is capturing a CUDA graph, and the capture's id (unique
-// in the process) when it is: the detect wrapper gives each capture chunk
-// counters of its own.
+// in the process) when it is: each capture gets counters of its own
+// (kernels/_counters.py).
 extern "C" int repro_capture_id(void* stream, int* capturing,
                                 unsigned long long* id) {
   cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;

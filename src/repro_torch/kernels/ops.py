@@ -5,9 +5,9 @@ The tile rules (`_tile`, `_tile_pad`) are the JAX package's: on a CPU
 tensor they decide the granularity of the partials, so the plain path
 reproduces the JAX package's outputs shape for shape, degenerate views
 (which the JAX package hands to its plain pass) included. They exist to
-zero-pad O for the TPU; the CUDA kernels mask ragged edges themselves, so
-a CUDA tensor always gets tiles the kernel can take and always launches
-it, and O is never copied.
+zero-pad O for the TPU; the CUDA kernels mask ragged edges themselves (and
+the conv detection sums' kernel tiles O for the card on its own), so a
+CUDA tensor always launches its kernel, and O is never copied.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from . import ref as _ref
 from .abft_matmul import abft_matmul as _abft_matmul_kernel
 from .abft_matmul import abft_matmul_detect as _abft_matmul_detect_kernel
 from .checksum_reduce import checksum_reduce as _checksum_reduce_kernel
+from .checksum_reduce import conv_sums as _conv_sums_kernel
 
 F32 = torch.float32
 
@@ -181,37 +182,22 @@ def chunk_sums_from_partials(parts, rb: int, cb: int, o=None):
 
 def conv_detect_sums(o4: torch.Tensor, *,
                      tiles: Optional[Tuple[int, int]] = None):
-    """Kernel route for `core.checksums.detect_sums`: one pass of the
-    checksum_reduce kernel over the flattened (N*M, E*E) view of
-    O[N,M,E,E], finished to the per-payload detection sums
-    (s5, s6, s7, sumsq).
+    """Kernel route for `core.checksums.detect_sums`: the per-payload
+    detection sums (s5, s6, s7, sumsq) of O[N,M,E,E] in one pass over its
+    flattened (N*M, E*E) view.
 
-    Row tiles never straddle a batch block (the flattened row nm has
+    A CUDA tensor always launches the conv-sums kernel, which tiles O for
+    the card and finishes the sums in its launch. A CPU tensor takes the
+    JAX package's route shape for shape: its tile rule, the tile partials
+    (row tiles never straddle a batch block: the flattened row nm has
     weights n = nm // M for s6 and m = nm % M for s7, and wcolsum carries
-    only the local row weight): the kernel views O as N segments of M
-    rows and masks each segment's ragged last tile. On a CPU tensor whose
-    view is degenerate it returns None, so the caller takes the plain pass
-    as the JAX package does; a CUDA tensor always launches the kernel."""
+    only the local row weight), finished on the host; where its view is
+    degenerate it returns None, so the caller takes the plain pass as the
+    JAX package does."""
+    if o4.device.type == "cuda":
+        return _conv_sums_kernel(o4)
     n, m, e1, e2 = o4.shape
-    p = e1 * e2
-    bt = conv_tiles(m, p, tiles, on_card=o4.device.type == "cuda")
+    bt = conv_tiles(m, e1 * e2, tiles)
     if bt is None:
         return None
-    bm, bn = bt
-    colsum, _, sumsq, wcolsum = _checksum_reduce_kernel(
-        o4.reshape(n * m, p), bm, bn, segments=n, rowsum=False)
-    return finish_conv_sums(colsum, sumsq, wcolsum, m, bm)
-
-
-def finish_conv_sums(colsum, sumsq, wcolsum, m: int, bm: int):
-    """(s5, s6, s7, sumsq) from checksum_reduce's partials of the (N*M, P)
-    conv view taken as N segments of M rows in tiles of bm rows."""
-    mt = -(-m // bm)                          # row tiles per batch block
-    t = torch.arange(colsum.shape[0], device=colsum.device)
-    nw = (t // mt).to(F32)                    # n, constant per tile
-    mbase = ((t % mt) * bm).to(F32)           # m of the tile's first row
-    s5 = torch.sum(colsum, dim=0)
-    s6 = nw @ colsum
-    s7 = mbase @ colsum + torch.sum(wcolsum, dim=0)
-    sq = torch.sum(sumsq)
-    return s5, s6, s7, sq
+    return _conv_sums_kernel(o4, bt)

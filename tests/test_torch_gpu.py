@@ -78,6 +78,99 @@ def test_checksum_reduce_kernel_on_card(cuda_device, oshape):
         assert_close(a, b, 0, 1e-4 * (float(b.abs().max()) + 1))
 
 
+CONV_VIEWS = [(8, 64, 112, 112), (8, 128, 28, 28), (8, 256, 14, 14),
+              (8, 512, 7, 7), (2, 20, 14, 14), (2, 61, 2, 2), (2, 5, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("oshape", CONV_VIEWS)
+def test_conv_sums_kernel_on_card(cuda_device, oshape, dtype):
+    """The conv detection sums in one launch, at every conv view (16-byte
+    rows, 4-byte ones of P = 49, 196 and 4, one column) and both types of
+    O, against their plain version at the tiles conv_tiles gives on the
+    card, and against the plain detection pass on the same values: atol
+    1e-4 * (max|ref| + 1), fp32 reassociation only."""
+    o = torch.as_tensor(normal(2, oshape)).to(cuda_device, dtype)
+    n, m, e1, e2 = oshape
+    before = TCR.LAUNCHES
+    got = TCR.conv_sums(o)
+    torch.cuda.synchronize()
+    assert TCR.LAUNCHES == before + 1
+    want = TCR.conv_sums_plain(o, *tops.conv_tiles(m, e1 * e2, on_card=True))
+    for ref in (want, TC.detect_sums(o.float())):
+        for a, b, name in zip(got, ref, ("s5", "s6", "s7", "sumsq")):
+            assert a.shape == b.shape and a.dtype == torch.float32, name
+            assert_close(a, b, 1e-5, 1e-4 * (float(b.abs().max()) + 1), name)
+
+
+def _device_kernels(fn):
+    """The device kernels one call of fn launches, by name (torch.profiler,
+    after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = {e.key: e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")}
+    assert kernels, "the profiler saw no device kernel:\n" + events.table(
+        row_limit=20)
+    return kernels
+
+
+@pytest.mark.parametrize("oshape", [(8, 64, 112, 112), (8, 512, 7, 7)])
+def test_conv_sums_repeat_bitwise_and_leave_no_state(cuda_device, oshape):
+    """Without row groups (conv0's view) and with 32 of them (7x7): the
+    sums are bitwise the same over launches and replays of a CUDA graph
+    (every sum in a fixed order, no float atomics), the counters the last
+    blocks met on are zero again, and each call is one device kernel."""
+    from repro_torch.kernels import _counters as TK
+    o = torch.as_tensor(normal(3, oshape), device=cuda_device)
+    before = TCR.LAUNCHES
+    first = TCR.conv_sums(o)
+    again = TCR.conv_sums(o)
+    torch.cuda.synchronize()
+    assert TCR.LAUNCHES == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = TCR.conv_sums(o)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, again, captured):
+            assert torch.equal(a, b) and torch.equal(a, c)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    dev = o.device
+    assert not TK._EAGER[(dev, stream)].any()
+    kernels = _device_kernels(lambda: TCR.conv_sums(o))
+    assert sum(kernels.values()) == 1, kernels
+    assert "conv_sums_kernel" in next(iter(kernels)), kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_detect_is_one_kernel(cuda_device, dtype):
+    """abft_matmul_detect is one device kernel per call in both types (the
+    chunk compare runs in the GEMM's launch), at the fc's shape. (Kept
+    beside the other profiler test: run after the GEMM tests further down
+    this file, torch.profiler on the card recorded this cluster kernel's
+    launch call but not the kernel; alone, and in chip_smoke.py, it
+    records both.)"""
+    n, k, m, rb, cb = 8, 512, 1000, 8, 1000
+    d = torch.as_tensor(normal(1, (n, k))).to(cuda_device, dtype)
+    w = torch.as_tensor(normal(2, (k, m)) * k ** -0.5).to(cuda_device, dtype)
+    cs = _chunk_checksums(d, w, rb, cb)
+    before = TAM.DETECT_LAUNCHES
+    kernels = _device_kernels(lambda: TAM.abft_matmul_detect(
+        d, w, *cs, rb, cb, 1e-3, 1e-3))
+    assert TAM.DETECT_LAUNCHES == before + 2
+    assert sum(kernels.values()) == 1, kernels
+    assert "gemm_kernel" in next(iter(kernels)), kernels
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     o = torch.zeros((16, 16), device=cuda_device, dtype=torch.float16)
     with pytest.raises(NotImplementedError):
@@ -180,30 +273,26 @@ DETECT_CASES = [(8, 960, 960, 8, 960, False), (8, 960, 320, 8, 320, False),
 
 def test_kernel_tiling_is_read_from_the_source(cuda_device):
     """The wrappers size their buffers from the CUDA source's own tiling
-    rule (tm, tn, seg, splits, swapped). float32: 16 x 32 for N <= 16,
-    else 64 x 64, no split. bfloat16: O^T = W^T D^T in blocks of 64
-    columns by the smallest of 8-128 rows that holds N, K split over up to
-    8 blocks (one cluster) so that tiles x splits reaches about 132. The
-    detect segment divides both the tile's width and cb."""
+    rule (tm, tn, seg, splits), one rule for both types: O^T = W^T D^T in
+    blocks of 64 columns by the smallest of 8-128 rows that holds N, K (in
+    tiles of 128 bytes: 64 bf16, 32 f32) split over up to 8 blocks (one
+    cluster) so that tiles x splits reaches about 132. The detect segment
+    divides both the tile's width and cb."""
     f32, bf16 = torch.float32, torch.bfloat16
-    assert TAM.kernel_tiling(8, 512, 1000, f32) == (16, 32, 0, 1, False)
-    assert TAM.kernel_tiling(16, 960, 960, f32, 960) == (16, 32, 32, 1,
-                                                         False)
-    assert TAM.kernel_tiling(17, 520, 640, f32, 640) == (64, 64, 64, 1,
-                                                         False)
-    assert TAM.kernel_tiling(128, 64, 48, f32, 48) == (64, 64, 16, 1, False)
+    # the fc: 16 tiles x 8 splits of 2 K tiles
+    assert TAM.kernel_tiling(8, 512, 1000, f32) == (8, 64, 0, 8)
+    assert TAM.kernel_tiling(16, 960, 960, f32, 960) == (16, 64, 64, 8)
+    assert TAM.kernel_tiling(17, 520, 640, f32, 640) == (32, 64, 64, 6)
+    assert TAM.kernel_tiling(128, 64, 48, f32, 48) == (128, 64, 16, 2)
     # decode: 15 tiles of a 960-wide site, 15 K tiles of 64 -> 8 splits
-    assert TAM.kernel_tiling(8, 960, 960, bf16, 960) == (8, 64, 64, 8, True)
-    assert TAM.kernel_tiling(8, 960, 320, bf16) == (8, 64, 0, 8, True)
-    assert TAM.kernel_tiling(8, 2560, 960, bf16) == (8, 64, 0, 8, True)
+    assert TAM.kernel_tiling(8, 960, 960, bf16, 960) == (8, 64, 64, 8)
+    assert TAM.kernel_tiling(8, 960, 320, bf16) == (8, 64, 0, 8)
+    assert TAM.kernel_tiling(8, 2560, 960, bf16) == (8, 64, 0, 8)
     # the head's 768 tiles fill the card without a split
-    assert TAM.kernel_tiling(8, 960, 49152, bf16, 1024) == (8, 64, 64, 1,
-                                                            True)
-    assert TAM.kernel_tiling(128, 960, 2560, bf16, 640) == (128, 64, 64, 4,
-                                                            True)
-    assert TAM.kernel_tiling(17, 1000, 48, bf16, 48) == (32, 64, 16, 8,
-                                                         True)
-    assert TAM.kernel_tiling(300, 64, 48, bf16) == (128, 64, 0, 1, True)
+    assert TAM.kernel_tiling(8, 960, 49152, bf16, 1024) == (8, 64, 64, 1)
+    assert TAM.kernel_tiling(128, 960, 2560, bf16, 640) == (128, 64, 64, 4)
+    assert TAM.kernel_tiling(17, 1000, 48, bf16, 48) == (32, 64, 16, 8)
+    assert TAM.kernel_tiling(300, 64, 48, bf16) == (128, 64, 0, 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -252,31 +341,20 @@ def test_abft_matmul_detect_kernel_on_card(cuda_device, n, k, m, rb, cb,
             "differently"
 
 
-@pytest.mark.parametrize("n", [1, 8, 16, 17, 32, 64, 128])
-@pytest.mark.parametrize("transposed", [False, True])
-@pytest.mark.parametrize("k,m", [(1000, 200), (997, 203)])
-def test_bf16_mainloop_is_deterministic_and_shared(cuda_device, n,
-                                                   transposed, k, m):
-    """The bf16 wgmma mainloop at every row tile, both W layouts, a K that
-    the 64-wide K tiles and the split leave ragged (1000: 16-byte rows,
-    copied asynchronously; 997 x 203: rows that are not, loaded element
-    by element): O bitwise equal between abft_matmul and
-    abft_matmul_detect, bitwise equal O, flags and scores on a second call
-    (the split-K sum is taken in a fixed order), O within one bf16 ulp of
-    the plain version and flags equal to its."""
+def _mainloop_case(dev, dtype, n, transposed, k, m):
+    """O bitwise equal between abft_matmul and abft_matmul_detect, bitwise
+    equal O, flags and scores on a second call (the split-K sum is taken in
+    a fixed order), flags equal to the plain version's and clear; returns
+    the kernel's O and the plain version's."""
     from repro_torch.core import thresholds as TTH
-    bf16 = torch.bfloat16
-    d = torch.as_tensor(normal(n, (n, k))).to(cuda_device, bf16)
+    d = torch.as_tensor(normal(n, (n, k))).to(dev, dtype)
     if transposed:
-        w = torch.as_tensor(normal(m, (m, k)) * k ** -0.5).to(
-            cuda_device, bf16).T
+        w = torch.as_tensor(normal(m, (m, k)) * k ** -0.5).to(dev, dtype).T
     else:
-        w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(
-            cuda_device, bf16)
-    t = TAM.kernel_tiling(n, k, m, bf16, m)
-    assert t.splits > 1 and t.swapped
+        w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(dev, dtype)
+    assert TAM.kernel_tiling(n, k, m, dtype, m).splits > 1
     cs = _chunk_checksums(d, w, n, m)
-    tau_a, tau_b = TTH.tau_scalar_coeffs(k, bf16, 32.0)
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, dtype, 32.0)
     runs = [TAM.abft_matmul_detect(d, w, *cs, n, m, tau_a, tau_b)
             for _ in range(2)]
     o_p, _ = TAM.abft_matmul(d, w, 8, 8)
@@ -288,9 +366,38 @@ def test_bf16_mainloop_is_deterministic_and_shared(cuda_device, n,
         assert torch.equal(a, b) and a.dtype == b.dtype
     assert torch.equal(o, o_p), "detect and partials kernels round O " \
         "differently"
+    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+    return o, o_r
+
+
+MAINLOOP_CASES = [(n, transposed, k, m) for n in (1, 8, 16, 17, 32, 64, 128)
+                  for transposed in (False, True)
+                  for k, m in ((1000, 200), (997, 203))]
+
+
+@pytest.mark.parametrize("n,transposed,k,m", MAINLOOP_CASES)
+def test_bf16_mainloop_is_deterministic_and_shared(cuda_device, n,
+                                                   transposed, k, m):
+    """The bf16 wgmma mainloop at every row tile, both W layouts, a K that
+    the 64-wide K tiles and the split leave ragged (1000: 16-byte rows,
+    copied asynchronously; 997 x 203: rows that are not, loaded element
+    by element): _mainloop_case's contracts, and O within one bf16 ulp of
+    the plain version."""
+    o, o_r = _mainloop_case(cuda_device, torch.bfloat16, n, transposed, k, m)
     ulp = o_r.float().abs() * 2.0 ** -7 + 1e-6
     assert bool(((o.float() - o_r.float()).abs() <= ulp).all())
-    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+
+
+@pytest.mark.parametrize("n,transposed,k,m", MAINLOOP_CASES)
+def test_f32_mainloop_is_deterministic_and_shared(cuda_device, n,
+                                                  transposed, k, m):
+    """The f32 FMA mainloop at every row tile, both W layouts, a K that
+    the 32-wide K tiles and the split leave ragged (1000: 16-byte rows;
+    997 x 203: rows that are not): _mainloop_case's contracts, and O
+    within fp32 reassociation of the plain version (rtol 1e-5, atol
+    1e-4 * sqrt(K))."""
+    o, o_r = _mainloop_case(cuda_device, torch.float32, n, transposed, k, m)
+    assert_close(o, o_r, 1e-5, 1e-4 * k ** 0.5, "O")
 
 
 def test_bf16_detect_keeps_no_state_between_launches(cuda_device):
@@ -374,6 +481,41 @@ def test_bf16_accumulation_keeps_fp32_rounding(cuda_device, transposed):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     err = o32.double() - exact
+    rms = float(err.pow(2).mean().sqrt())
+    rms_ref = float((ref32.double() - exact).pow(2).mean().sqrt())
+    bias = float((err * exact.sign()).mean())
+    assert rms <= 2.0 * rms_ref, (rms, rms_ref)
+    assert abs(bias) <= rms_ref, (bias, rms_ref)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape", [(8, 512, 1000), (16, 2560, 8448)])
+def test_f32_accumulation_keeps_ieee_rounding(cuda_device, shape,
+                                              transposed):
+    """The f32 mainloop sums each element by fp32 FMA (IEEE, round to
+    nearest), which the thresholds price: against the float64 product its
+    O's rms error and bias toward zero are each at most cuBLAS's fp32 rms
+    error times 2 and 1, at the fc's shape (8 splits) and at a K of 2560
+    on 132 tiles (no split)."""
+    n, k, m = shape
+    f32 = torch.float32
+    d = torch.as_tensor(normal(1, (n, k)), device=cuda_device)
+    if transposed:
+        w = torch.as_tensor(normal(2, (m, k)) * k ** -0.5,
+                            device=cuda_device).T
+    else:
+        w = torch.as_tensor(normal(2, (k, m)) * k ** -0.5,
+                            device=cuda_device)
+    o, _ = TAM.abft_matmul(d, w, 1, 1)
+    exact = d.double() @ w.double()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref32 = d @ w
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert o.dtype == f32
+    err = o.double() - exact
     rms = float(err.pow(2).mean().sqrt())
     rms_ref = float((ref32.double() - exact).pow(2).mean().sqrt())
     bias = float((err * exact.sign()).mean())

@@ -158,11 +158,62 @@ def test_conv_tiles_on_card_cover_every_view(oshape):
     colsum, _, sumsq, wcolsum = TCR.checksum_reduce_plain(
         torch.as_tensor(o).reshape(n * m, p), bm, bn, segments=n,
         rowsum=False)
-    got = tops.finish_conv_sums(colsum, sumsq, wcolsum, m, bm)
+    got = TCR.finish_conv_sums(colsum, sumsq, wcolsum, m, bm)
     want = JC.detect_sums(jnp.asarray(o), exact_order=True)
     for a, b, name in zip(got, want, ("s5", "s6", "s7", "sumsq")):
         scale = float(np.max(np.abs(np.atleast_1d(np.asarray(b))))) + 1.0
         assert_close(a, b, 0, 1e-4 * scale, name)
+
+
+# ResNet-18's five conv output views at batch 2, channels narrowed, and a
+# degenerate one (2x2 maps: no tile of >= 8 fits P = 4)
+RESNET_VIEWS = [(2, 8, 112, 112), (2, 8, 56, 56), (2, 16, 28, 28),
+                (2, 32, 14, 14), (2, 64, 7, 7), (2, 61, 2, 2)]
+
+
+@pytest.mark.parametrize("oshape", RESNET_VIEWS)
+def test_conv_sums_plain_matches_jax(oshape):
+    """The conv detection sums' plain version (what ops.conv_detect_sums
+    runs on a CPU tensor, and what the CUDA kernel is held against on the
+    card) against the JAX package's Pallas route in interpret mode; on the
+    degenerate view both return None and both detect_sums take the plain
+    pass. rtol 1e-5, atol 1e-4 * (max|ref| + 1): fp32 reassociation over
+    up to N*M terms per payload position and N*M*P for the sum of
+    squares."""
+    o = normal(sum(oshape), oshape)
+    got = tops.conv_detect_sums(torch.as_tensor(o))
+    want = jops.conv_detect_sums(jnp.asarray(o), interpret=True)
+    assert (got is None) == (want is None)
+    if want is None:
+        got = TC.detect_sums(torch.as_tensor(o), use_kernel=True)
+        want = JC.detect_sums(jnp.asarray(o))
+    for a, b, name in zip(got, want, ("s5", "s6", "s7", "sumsq")):
+        assert tuple(a.shape) == tuple(np.shape(b)), name
+        scale = float(np.max(np.abs(np.atleast_1d(np.asarray(b))))) + 1.0
+        assert_close(a, b, 1e-5, 1e-4 * scale, name)
+
+
+def test_counter_sets_by_stream_and_capture(monkeypatch):
+    """The counter sets the kernels' last blocks meet on
+    (kernels/_counters.py): one per (device, stream) for eager launches,
+    one per graph capture, a capture's set dropped at the next eager
+    launch, and a set that is too short replaced by a zeroed longer one."""
+    from repro_torch.kernels import _counters as TK
+    monkeypatch.setattr(TK, "_EAGER", {})
+    monkeypatch.setattr(TK, "_CAPTURED", {})
+    cpu = torch.device("cpu")
+    a = TK.held(cpu, 1, None, 10)
+    assert a.dtype == torch.int32 and a.numel() >= 10 and not a.any()
+    assert TK.held(cpu, 1, None, 20) is a
+    assert TK.held(cpu, 2, None, 10) is not a
+    g = TK.held(cpu, 1, 7, 10)
+    assert g is not a and TK.held(cpu, 1, 7, 10) is g
+    assert TK.held(cpu, 1, 8, 10) is not g
+    assert TK.held(cpu, 1, None, 10) is a      # the captures have ended
+    assert TK.held(cpu, 1, 7, 10) is not g
+    big = TK.held(cpu, 1, None, TK.MIN_COUNTERS + 1)
+    assert big is not a and big.numel() == TK.MIN_COUNTERS + 1
+    assert not big.any() and TK.held(cpu, 1, None, 10) is big
 
 
 def test_checksum_reduce_segments_never_straddle():

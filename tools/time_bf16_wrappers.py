@@ -6,8 +6,9 @@ For the port under TREE (this checkout, or another commit unpacked with
 prints one JSON line: the device µs per launch of abft_matmul_detect and
 abft_matmul at every SmolLM-360M GEMM shape at 8 and 128 rows, timed as
 chip_smoke.py phase 3b times them (one CUDA graph over copies of the
-inputs, cold in L2), and the host µs of one wrapper call at the decode wq
-shape. Each tree builds its kernels into its own build/. Run the trees in
+inputs, cold in L2), a digest of both wrappers' outputs at each shape
+(equal digests: bitwise equal results on the same seeded inputs), and the
+host µs of one wrapper call at the decode wq shape. Each tree builds its kernels into its own build/. Run the trees in
 turns in one call, since a card's power limit and its host's load differ
 between calls:
 
@@ -16,6 +17,7 @@ between calls:
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -56,13 +58,21 @@ def main(tree: str) -> int:
                 bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
                 cs, _ = C.exact_chunk_checksums(d, view(store), rb, cb)
                 ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+                outs = [*AM.abft_matmul_detect(d, view(store), *cs, rb, cb, ta,
+                                               tb)]
+                o, parts = AM.abft_matmul(d, view(store), bm, bn)
+                digest = hashlib.sha256()
+                for t in outs + [o, *parts[:3]]:
+                    digest.update(t.contiguous().view(torch.uint8).cpu()
+                                  .numpy().tobytes())
                 args = C.copies([d, store] + cs)
                 det = C.time_device(lambda a, b, *c: AM.abft_matmul_detect(
                     a, view(b), *c, rb, cb, ta, tb), args)
                 mm = C.time_device(lambda a, b, *c: AM.abft_matmul(
                     a, view(b), bm, bn), args)
                 us[f"{label} {n}"] = {"detect": det * 1e3,
-                                      "abft_matmul": mm * 1e3}
+                                      "abft_matmul": mm * 1e3,
+                                      "digest": digest.hexdigest()[:16]}
                 del args
     print(json.dumps({"tree": tree, "card": C.nvidia_smi(),
                       "device_us": us,
