@@ -37,6 +37,16 @@ Phases, each fatal on failure:
   5. injected faults (conv5: one element; conv13: a burst over channels
      of one image at one payload position): detected, corrected, no
      residual, logits back to the clean ones, in both modes;
+  5b. the paper's error-injected overhead: a `burst` fault drawn by the
+     port's registry (up to 100 elements of one block-row or column,
+     +-2^e) injected at each of the 17 convs in turn, with the plan as
+     built and with RC/ClC off (Fig. 10b), each in per_layer and deferred
+     mode: detected, no residual, no other layer flagged, logits back
+     within rtol 1e-4; 17 conv-sums launches per faulted forward; the
+     median faulted forward per layer timed in turns with the unprotected
+     and the clean protected one, the error-injected overhead (mean over
+     layers of the faulted medians / the unprotected median - 1) and the
+     scheme histogram;
   6. the serving slice: SmolLM-360M at full width in bf16 (random params
      from a seed), a ProtectedSession of 8 slots and 256 positions in
      deferred mode with the kernels pinned, serving 16 requests (prompts
@@ -51,7 +61,20 @@ Phases, each fatal on failure:
   7. serving drills: +1e4 at one logit of slot 3 at every decode step
      (the tied head) and +1e3 at one element of a stage's wq in every
      prefill and repeat: detected, corrected, attributed to the right
-     requests, no residual, tokens equal to the clean run's.
+     requests, no residual, tokens equal to the clean run's;
+  7b. the serving weight audit: sessions with audit_every=1 and a
+     restore_fn; one column of one repeat of a stage's wq overwritten
+     between two steps is repaired in place (verdict `repaired`, no
+     restore, the leaf bitwise clean), two corrupted blocks are restored;
+     tokens equal to the clean run's; the audit's and the repair's ms;
+  8. the campaign on the card: matmul and conv, scheme full, every
+     registered fault arm, 1000 trials per cell (the paper's grid), and
+     every layer x scheme x arm at 200: every gate of
+     repro_torch.campaign.run.check, deferred == full per arm, and one
+     cell per layer (64 trials per arm) against the port's own CPU run
+     (no detected or residual mismatch; corrected_by may differ only
+     between two correcting verdicts, in at most 1% of the trials);
+     CSV rows and us per trial.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -62,6 +85,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import statistics
@@ -82,6 +106,13 @@ BATCH, IMG = 8, 224
 SERVE_ARCH = "smollm-360m"
 SLOTS, MAX_LEN = 8, 256
 N_REQ, GEN, PROMPT_LENS = 16, 32, (16, 128)
+# trials per cell of the campaign's whole grid (3 layers x 5 schemes x
+# every arm); the paper grid runs 1000
+GRID_TRIALS = 200
+# card vs CPU, the campaign's 64 trials per arm and layer: the share of
+# trials whose corrected_by may differ (which rung first verifies a fix
+# hangs on the order of a sum, ROADMAP 3.4); 9 of 1,728 were seen
+RUNG_MISMATCH_SHARE = 0.01
 DELTA = 0.1                    # teacher-forced logit margin
 DEVICE = "cuda"
 # (label, K, M, W read transposed, launches per forward) of the distinct
@@ -152,11 +183,11 @@ def time_device(fn, args_list, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def time_host(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
-    """Median milliseconds of each fn() + synchronize on the host clock.
-    The functions take turns within each round, in an order rotated from
-    round to round, so that a drift of the shared host falls on all of
-    them alike."""
+def time_turns(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
+    """Milliseconds of each fn() + synchronize on the host clock, `reps`
+    samples each. The functions take turns within each round, in an
+    order rotated from round to round, so that a drift of the shared host
+    falls on all of them alike."""
     import torch
     for _ in range(warmup):
         for fn in fns.values():
@@ -169,7 +200,13 @@ def time_host(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
             fns[k]()
             torch.cuda.synchronize()
             times[k].append((time.perf_counter() - t0) * 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+    return times
+
+
+def time_host(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
+    """Median milliseconds of each fn() + synchronize (time_turns)."""
+    return {k: statistics.median(v)
+            for k, v in time_turns(fns, reps, warmup).items()}
 
 
 def bound_ms(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
@@ -1013,8 +1050,113 @@ def run_slice(report):
             faults[f"conv{layer}/{mode}"] = {**site, "what": what,
                                              "logit_max_diff": d_l}
     res["faults"] = faults
+    res["erroneous"] = run_erroneous(params, x, cfg, fused, logits, scale,
+                                     unprot, times)
     report["slice"] = res
     return res
+
+
+def run_erroneous(params, x, cfg, fused, logits, scale, unprot,
+                  clean_times) -> dict:
+    """Phase 5b: the paper's error-injected overhead at full width, after
+    benchmarks/bench_erroneous.py. The port's registry draws a `burst`
+    spec (up to 100 elements in one block-row or block-column, +-2^e) for
+    each of the 17 convs in turn, injected through forward_cnn's
+    inject_layer/inject_o into the clean output conv_output_at gives.
+    Two plan variants (as built, with the layerwise RC/ClC choice; RC/ClC
+    off, the paper's Fig. 10b), each in per_layer and deferred mode: the
+    injected layer detected with no residual, no other layer flagged,
+    logits back to the clean ones (rtol 1e-4). Each faulted forward is
+    timed in turns with the unprotected and the clean protected forward;
+    the error-injected overhead is the mean over layers of the median
+    faulted forward over the median unprotected forward, minus 1."""
+    import torch
+    from repro_torch.core import ProtectionPlan
+    from repro_torch.core import injection as inj
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import checksum_reduce as CR
+    from repro_torch.models import cnn
+
+    log("phase 5b: the error-injected overhead")
+    model = inj.FAULT_MODELS["burst"]
+    gen = torch.Generator().manual_seed(SEED + 5)
+    n_conv = len(cfg.convs)
+    o_bad, specs = [], []
+    for layer in range(n_conv):
+        _, o_clean = cnn.conv_output_at(params, x, cfg, layer)
+        n_, m_ = o_clean.shape[0], o_clean.shape[1]
+        spec = model.plan(gen, n_, m_, o_clean.shape[2] * o_clean.shape[3],
+                          100)
+        o_bad.append(inj.inject(o_clean, spec.to(o_clean.device), model))
+        specs.append({"axis": int(spec.axis), "index": int(spec.index),
+                      "nelem": int(spec.nelem), "scale": float(spec.scale)})
+    variants = {
+        "layerwise": fused,
+        "no_rcclc": ProtectionPlan(
+            {n: dataclasses.replace(e, cfg=e.cfg.replace(
+                rc_enabled=False, clc_enabled=False))
+             for n, e in fused.entries.items()}, dict(fused.meta)),
+    }
+    out = {"specs": specs}
+    for vname, vplan in variants.items():
+        for mode in ("per_layer", "deferred"):
+            fwd = lambda i=-1: cnn.forward_cnn(
+                params, x, cfg, plan=vplan, correction=mode,
+                inject_layer=i, inject_o=o_bad[i] if i >= 0 else None)
+            by, launches, diffs = [], [], []
+            for i in range(n_conv):
+                CR.LAUNCHES = AM.LAUNCHES = 0
+                lg, rep = fwd(i)
+                torch.cuda.synchronize()
+                launches.append((CR.LAUNCHES, AM.LAUNCHES))
+                summ = rep.summary()
+                site = summ[f"conv{i}"]
+                others = {k: v for k, v in summ.items()
+                          if k != f"conv{i}" and v["detected"]}
+                d_l = max_err(lg, logits["per_layer"])
+                diffs.append(d_l)
+                by.append(site["corrected_by"])
+                if not (site["detected"] == 1 and site["residual"] == 0
+                        and site["corrected_by"] != "none"
+                        and not others and torch.isfinite(lg).all()
+                        and torch.allclose(lg, logits["per_layer"],
+                                           rtol=1e-4, atol=1e-4 * scale)):
+                    fail(f"5b {vname}/{mode} conv{i} {specs[i]}: {site}, "
+                         f"others {others}, logits max |diff| {d_l:.3g}")
+                if CR.LAUNCHES != n_conv or AM.LAUNCHES < 1:
+                    fail(f"5b {vname}/{mode} conv{i}: launches "
+                         f"{launches[-1]}, want {n_conv} conv sums and "
+                         "the fc's abft_matmul")
+            faulted, unp, clean = [], [], []
+            for i in range(n_conv):
+                t = time_turns({"unprotected": unprot,
+                                "clean": lambda: fwd(),
+                                "faulted": lambda i=i: fwd(i)},
+                               reps=5, warmup=1)
+                faulted.append(statistics.median(t["faulted"]))
+                unp += t["unprotected"]
+                clean += t["clean"]
+            u, c = statistics.median(unp), statistics.median(clean)
+            overhead = statistics.mean(faulted) / u - 1
+            hist = dict(collections.Counter(by))
+            key = f"{vname}/{mode}"
+            out[key] = {"corrected_by": by, "histogram": hist,
+                        "launches_per_forward": launches,
+                        "logit_max_diff": diffs,
+                        "faulted_ms": faulted, "unprotected_ms": u,
+                        "clean_ms": c, "error_injected_overhead": overhead,
+                        "error_free_overhead": c / u - 1}
+            log(f"  {key}: 17/17 detected, residual 0, logits within "
+                f"rtol 1e-4 (max |diff| {max(diffs):.3g}); schemes {hist}; "
+                f"launches per faulted forward (conv sums, abft_matmul) "
+                f"{sorted(set(launches))}")
+            log(f"  {key}: median ms unprotected {u:.3f}, clean protected "
+                f"{c:.3f}, faulted per layer "
+                + " ".join(f"{f:.2f}" for f in faulted))
+            log(f"  {key}: error-injected overhead {overhead * 100:.1f}% "
+                f"(error-free in the same turns {(c / u - 1) * 100:.1f}%; "
+                f"phase 4: {(clean_times[mode] / clean_times['unprotected'] - 1) * 100:.1f}%)")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1249,7 +1391,224 @@ def run_serving(report):
     res["drills"] = {"decode": {"counters": cd, "target": by_slot[target],
                                 "hit_slots": hit_slots},
                      "prefill": {"counters": cp_}}
+    res["audit"] = run_audit_drills(params, cfg, fused, drill_prompts,
+                                    clean)
     report["serving"] = res
+    return res
+
+
+def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
+    """Phase 7b: the plan-trusted weight audit of a serving session at
+    full width. Sessions with audit_every=1 and a restore_fn that returns
+    a saved copy of the clean params serve `prompts` (8 new tokens each).
+    Drill 1 overwrites 1..K elements of one column of one repeat of a
+    stage's wq in place between two steps (the weight_corrupt_correctable
+    damage class, drawn by the registry): the next audit repairs it in
+    place - verdict `repaired`, no restore, the leaf bitwise the clean
+    one. Drill 2 corrupts two blocks: the ladder restores. Both serve the
+    clean run's tokens; the deferred detect kernel carries every forward."""
+    import torch
+    from repro_torch.core import injection as inj
+    from repro_torch.core import weight_leaf, workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.runtime import ft
+    from repro_torch.serving import ProtectedSession
+
+    log("phase 7b: the serving weight audit")
+    name = "stages/b0_attn_full/attn/wq"
+    if name not in plan:
+        fail(f"the plan has no entry {name}")
+    clone = lambda t: ({k: clone(v) for k, v in t.items()}
+                       if isinstance(t, dict) else t.clone())
+    saved = clone(params)
+    bits = lambda t: t.contiguous().view(torch.int16)
+    n_sites = cfg.stages()[1] * 7 + 1
+    # the audit alone on clean weights, and the repair rung on a flagged
+    # leaf, timed on the host (each reads its verdicts back)
+    aud_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        ok, bad = ft.audit_weights_against_plan(params, plan)
+        aud_ms.append((time.perf_counter() - t0) * 1e3)
+        if not ok:
+            fail(f"clean weights fail the audit: {bad[:3]}")
+    gen = torch.Generator().manual_seed(SEED + 7)
+    model = inj.FAULT_MODELS["weight_corrupt_correctable"]
+    out = {"audit_ms": aud_ms, "entry": name}
+
+    def drill(label, corrupt):
+        sp = clone(params)
+        sess = ProtectedSession(sp, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+                                audit_every=1, restore_fn=lambda: saved,
+                                device=DEVICE)
+        rids = [sess.submit(p, max_new_tokens=8) for p in prompts]
+        AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+        for _ in range(2):
+            sess.step()
+        what = corrupt(weight_leaf(sess.params, name))
+        while sess.step():
+            pass
+        torch.cuda.synchronize()
+        rep = sess.stats.report()
+        c = rep["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        verdicts = sorted({v for r in rep["requests"]
+                           for v in r["audit_verdicts"]})
+        same = [sess.tokens_for(r) for r in rids] == clean
+        leaf_ok = torch.equal(bits(weight_leaf(sess.params, name)),
+                              bits(weight_leaf(saved, name)))
+        res = {"what": what, "counters": {k: c[k] for k in (
+                   "weight_audits", "weight_repairs", "weight_restores",
+                   "faults_detected", "dropped")},
+               "verdicts": verdicts, "tokens_equal": same,
+               "leaf_bitwise_clean": leaf_ok,
+               "repair_ms": [r * 1e3 for r in sess.stats.repair_s],
+               "detect_launches": AM.DETECT_LAUNCHES, "forwards": forwards}
+        log(f"  {label}: {what}; audits {c['weight_audits']}, repairs "
+            f"{c['weight_repairs']}, restores {c['weight_restores']}, "
+            f"verdicts {verdicts}; leaf bitwise clean {leaf_ok}; tokens == "
+            f"clean: {same}; detect launches {AM.DETECT_LAUNCHES} over "
+            f"{forwards} forwards")
+        if AM.DETECT_LAUNCHES != n_sites * forwards or c["faults_detected"]:
+            fail(f"{label}: {AM.DETECT_LAUNCHES} detect launches over "
+                 f"{forwards} forwards, faults {c['faults_detected']}")
+        if not same or not leaf_ok or c["dropped"]:
+            fail(f"{label}: {res}")
+        return res
+
+    def one_column(w):
+        r = int(w.shape[0]) // 2
+        k, m = int(w.shape[1]), int(w.shape[2])
+        spec = model.plan(gen, k, m, 1, 100)
+        w[r].copy_(inj.inject(w[r], spec.to(w.device), model))
+        return (f"repeat {r}, column {int(spec.index)}: {int(spec.nelem)} "
+                f"elements set to {float(spec.add):g}")
+
+    def two_blocks(w):
+        reps, k, m = (int(d) for d in w.shape)
+        w[0, 11, 40] += 977.0
+        w[reps - 1, k - 5, m - 7] -= 977.0
+        return (f"repeat 0 (11, 40) and repeat {reps - 1} ({k - 5}, "
+                f"{m - 7}) moved by 977")
+
+    r1 = drill("drill 1, one column", one_column)
+    if not (r1["counters"]["weight_repairs"] == 1
+            and r1["counters"]["weight_restores"] == 0
+            and "repaired" in r1["verdicts"]):
+        fail(f"drill 1 did not repair in place: {r1}")
+    r2 = drill("drill 2, two blocks", two_blocks)
+    if not (r2["counters"]["weight_restores"] == 1
+            and r2["counters"]["weight_repairs"] == 0
+            and "restored" in r2["verdicts"]):
+        fail(f"drill 2 did not restore: {r2}")
+    # the repair alone, warm: the float64 solve of the flagged stacked
+    # leaf and the write-back of the repaired one, on a fresh one-column
+    # damage of drill 1's class
+    bad = clone(params)
+    one_column(weight_leaf(bad, name))
+    ok, flagged = ft.audit_weights_against_plan(bad, plan)
+    rep_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fixed, repaired = ft.repair_weights_against_plan(bad, plan, flagged)
+        torch.cuda.synchronize()
+        rep_ms.append((time.perf_counter() - t0) * 1e3)
+        if ok or repaired != [name] or not torch.equal(
+                bits(weight_leaf(fixed, name)), bits(weight_leaf(saved, name))):
+            fail(f"warm repair: flagged {flagged}, repaired {repaired}")
+    log(f"  audit ms (clean, 8 entries): median "
+        f"{statistics.median(aud_ms):.2f} of {[round(a, 2) for a in aud_ms]}; "
+        f"repair rung ms in drill 1 (repair + re-audit, first float64 "
+        f"solve of the process) {r1['repair_ms']}; the repair alone, warm: "
+        f"median {statistics.median(rep_ms):.2f} of "
+        f"{[round(a, 2) for a in rep_ms]}")
+    out.update({"repair": r1, "restore": r2, "warm_repair_ms": rep_ms})
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: the campaign
+# --------------------------------------------------------------------------
+
+def run_campaign_phase(report) -> dict:
+    """Phase 8: the fault-injection campaign on the card. The JAX CLI's
+    default grid (matmul and conv, scheme full, every registered arm) at
+    1000 trials per cell, and the whole grid (three layers x five
+    schemes x every arm) at GRID_TRIALS: every gate of the port's check
+    holds, and deferred gives full's detection rate and scheme histogram
+    per arm.
+    One cell per layer (64 trials per arm, scheme full) is run again on
+    the CPU: the per-trial verdicts are compared; a detected or residual
+    mismatch fails. corrected_by may differ (which rung first verifies
+    depends on the order of the sums, ROADMAP 3.4), but only between two
+    correcting verdicts and in at most RUNG_MISMATCH_SHARE of the
+    trials."""
+    import numpy as np
+    from repro_torch.campaign import (LAYER_CASES, SCHEME_CONFIGS,
+                                      CampaignEngine)
+    from repro_torch.campaign.run import check
+    from repro_torch.core import types as T
+    correcting = [T.COC, T.RC, T.CLC, T.FC, T.RECOMPUTE]
+
+    log("phase 8: the campaign")
+    eng = CampaignEngine(device=DEVICE)
+    rows = lambda c: log(f"  {c.row()}")
+    t0 = time.perf_counter()
+    paper = eng.run(["matmul", "conv"], ["full"], trials=1000, seed=SEED,
+                    progress=rows)
+    paper_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = eng.run(list(LAYER_CASES), list(SCHEME_CONFIGS),
+                   trials=GRID_TRIALS, seed=SEED, progress=rows)
+    grid_s = time.perf_counter() - t0
+    bad = check(paper) + check(grid)
+    if bad:
+        fail(f"campaign gates: {bad}")
+    for c in grid.cells:
+        if c.scheme == "deferred":
+            f = grid.cell(c.layer, "full", c.fault)
+            if (c.detection_rate, c.corrected_by) != \
+                    (f.detection_rate, f.corrected_by):
+                fail(f"{c.layer}/{c.fault}: deferred {c.detection_rate} "
+                     f"{c.corrected_by} vs full {f.detection_rate} "
+                     f"{f.corrected_by}")
+    cpu = CampaignEngine(device="cpu")
+    mism = {}
+    for layer in LAYER_CASES:
+        for fault in [c.fault for c in grid.cells
+                      if c.layer == layer and c.scheme == "full"]:
+            a, _ = eng.run_trials(layer, "full", fault, 64, seed=SEED)
+            b, _ = cpu.run_trials(layer, "full", fault, 64, seed=SEED)
+            n = {f: int(np.sum(getattr(a, f) != getattr(b, f)))
+                 for f in ("detected", "corrected_by", "residual")}
+            mism[f"{layer}/{fault}"] = n
+            if n["detected"] or n["residual"]:
+                fail(f"card vs CPU {layer}/{fault}: {n}")
+            rung = a.corrected_by != b.corrected_by
+            if not (np.isin(a.corrected_by[rung], correcting).all()
+                    and np.isin(b.corrected_by[rung], correcting).all()):
+                fail(f"card vs CPU {layer}/{fault}: corrected_by "
+                     f"{a.corrected_by[rung]} vs {b.corrected_by[rung]}")
+    by = sum(v["corrected_by"] for v in mism.values())
+    if by > RUNG_MISMATCH_SHARE * 64 * len(mism):
+        fail(f"card vs CPU: {by} corrected_by mismatches in "
+             f"{64 * len(mism)} trials")
+    trials = sum(c.trials for c in paper.cells + grid.cells)
+    wall = paper.meta["wall_seconds"] + grid.meta["wall_seconds"]
+    log(f"  gates hold on {len(paper.cells)} paper cells x "
+        f"{paper.meta['trials']} and {len(grid.cells)} grid cells x "
+        f"{grid.meta['trials']} trials; deferred == full per "
+        f"arm; card vs CPU (64 trials per arm, scheme full): 0 detected / "
+        f"0 residual mismatches, {by} corrected_by mismatches of "
+        f"{64 * len(mism)}")
+    log(f"  {trials} trials, {wall:.1f} s in the trial loops "
+        f"({wall / trials * 1e6:.0f} us per trial on the host clock); "
+        f"phase {paper_s + grid_s:.1f} s")
+    res = {"paper": paper.to_dict(), "grid": grid.to_dict(),
+           "card_vs_cpu_mismatches": mism,
+           "us_per_trial": wall / trials * 1e6,
+           "paper_s": paper_s, "grid_s": grid_s}
+    report["campaign"] = res
     return res
 
 
@@ -1314,6 +1673,7 @@ def main(argv=None) -> int:
     kernels[2]["launches"] = serving["deferred"]["launches"][
         "abft_matmul_detect"]
     kernels[3]["launches"] = serving["per_layer"]["launches"]
+    run_campaign_phase(report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"total {report['seconds']:.1f} s")

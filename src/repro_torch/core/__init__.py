@@ -1,13 +1,17 @@
 """ABFT core: checksum schemes + the multischeme workflow for convolution
-and matmul, and the offline-compiled ProtectionPlan API (twin of
-repro.core: the CNN and transformer slices)."""
+and matmul, the offline-compiled ProtectionPlan API, the fault-model
+registry and the at-rest weight repair (twin of repro.core: the CNN and
+transformer slices)."""
 from . import checksums, injection, plan, policy, protected, schemes
-from . import thresholds, types, workflow
+from . import thresholds, types, weight_repair, workflow
 from .checksums import (WeightLocators, weight_locators_conv,
                         weight_locators_matmul)
+from .injection import (CONTROL_MODEL, FAULT_MODELS, FaultModel, FaultSpec,
+                        fault_model_names, register_fault_model)
 from .plan import (W_VIEWS, OpSite, OpSpec, PlanEntry, PlanStaleError,
                    ProtectionPlan, ProtectionSpec, ambient_mode, ambient_plan,
-                   apply_w_view, build_plan, calibrate_tau_factor,
+                   apply_w_view, apply_w_view_inv, build_plan,
+                   calibrate_tau_factor,
                    conv_entry, correct_op, current_path, entry_overrides,
                    force_fused_matmul, matmul_entry, path_scope, plan_scope,
                    protect_op, protect_site, protection_spec, resolve_entry,
@@ -25,11 +29,14 @@ from .workflow import ProtectedModel, run_deferred, run_ladder
 
 __all__ = [
     "checksums", "injection", "plan", "policy", "protected", "schemes",
-    "thresholds", "types", "workflow",
+    "thresholds", "types", "weight_repair", "workflow",
+    "CONTROL_MODEL", "FAULT_MODELS", "FaultModel", "FaultSpec",
+    "fault_model_names", "register_fault_model",
     "WeightLocators", "weight_locators_conv", "weight_locators_matmul",
     "W_VIEWS", "OpSite", "OpSpec", "PlanEntry", "PlanStaleError",
     "ProtectionPlan", "ProtectionSpec", "ambient_mode", "ambient_plan",
-    "apply_w_view", "build_plan", "calibrate_tau_factor", "conv_entry",
+    "apply_w_view", "apply_w_view_inv", "build_plan",
+    "calibrate_tau_factor", "conv_entry",
     "correct_op", "current_path", "entry_overrides", "force_fused_matmul",
     "matmul_entry", "path_scope", "plan_scope", "protect_op", "protect_site",
     "protection_spec", "resolve_entry", "stacked_weight_checksums_matmul",

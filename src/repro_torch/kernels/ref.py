@@ -39,6 +39,12 @@ def checksum_reduce_ref(o: torch.Tensor, bm: int, bn: int) -> Tuple:
     return colsum[:, :m], rowsum[:n], sumsq, wcolsum[:, :m]
 
 
+def matmul_ref(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The fp32 product D @ W rounded once to D's type (abft_matmul_ref's
+    O); leading batch axes on both operands are allowed."""
+    return (d.to(F32) @ w.to(F32)).to(d.dtype)
+
+
 def abft_matmul_ref(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int
                     ) -> Tuple[torch.Tensor, Tuple]:
     """fp32 matmul plus the same tile partials, taken from the fp32

@@ -18,8 +18,12 @@ takes the kernel route's partials kernel (abft_matmul) where the detect
 pass took abft_matmul_detect; both round O identically, so clean slots
 differ by exactly 0.
 
-Not ported yet, and refused: `mesh=` (ROADMAP item 1.12), the weight
-audit (`audit_every > 0`, `restore_fn`; item 1.8).
+Plan-trusted weight audits run on the step cadence (`audit_every`):
+divergence from the plan's persisted checksums climbs runtime.ft's ladder
+- in-place repair from the plan's locator sums, then `restore_fn`, then
+WeightDivergenceError - before any forward of that step runs.
+
+Not ported yet, and refused: `mesh=` (ROADMAP item 1.12).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 from .._device import DeviceLike, fp32_ieee, resolve_device
 from ..core import ProtectedModel, as_fault_report
 from ..models import transformer as M
+from ..runtime.ft import PlanAuditor
 from .scheduler import SlotScheduler
 from .stats import RequestRecord, ServingStats
 
@@ -55,9 +60,13 @@ class ProtectedSession:
 
     Knobs: `slots` (decode batch width), `max_len` (KV capacity per
     slot), `correction` ("deferred" by default when a plan is present),
-    `slot_tol` (relative tolerance of the per-slot correction localizer;
-    clean slots differ by exactly 0), `device` (the card unless the
-    caller asks for the CPU; params and plan must lie there).
+    `audit_every` (plan-trusted weight-audit cadence in session steps, 0
+    = off; divergence climbs the ladder: in-place repair from the plan's
+    locator sums, then restore via `restore_fn`, then
+    WeightDivergenceError), `slot_tol` (relative tolerance of the
+    per-slot correction localizer; clean slots differ by exactly 0),
+    `device` (the card unless the caller asks for the CPU; params and
+    plan must lie there, and so must what `restore_fn` returns).
     """
 
     def __init__(self, params, cfg, plan=None, *, slots: int = 4,
@@ -69,10 +78,6 @@ class ProtectedSession:
             raise NotImplementedError(
                 "ProtectedSession(mesh=...) is not ported yet (ROADMAP "
                 "item 1.12)")
-        if audit_every or restore_fn is not None:
-            raise NotImplementedError(
-                "ProtectedSession's weight audit (audit_every, restore_fn) "
-                "is not ported yet (ROADMAP item 1.8)")
         if correction == "auto":
             correction = "deferred" if plan is not None else "per_layer"
         if correction == "deferred" and plan is None:
@@ -87,6 +92,7 @@ class ProtectedSession:
         self.slots = slots
         self.max_len = max_len
         self.correction = correction
+        self.audit_every = audit_every
         self.slot_tol = slot_tol
         self.params = params
         self.plan = plan
@@ -94,6 +100,9 @@ class ProtectedSession:
         self.scheduler = SlotScheduler(slots, max_len, cfg=cfg,
                                        bucket_floor=bucket_floor)
         self.stats = ServingStats()
+        self.auditor = PlanAuditor(plan, restore_fn=restore_fn,
+                                   params_fn=lambda s: s,
+                                   stats=self.stats.counters)
         self._caches = M.init_caches(cfg, slots, max_len, self.device)
         self._h_tokens = np.zeros((slots, 1), np.int64)
         self._h_positions = np.zeros((slots,), np.int64)
@@ -276,9 +285,27 @@ class ProtectedSession:
         self._h_tokens[slot, 0] = tok
         self._h_positions[slot] = req.prompt_len
 
+    def _run_audit(self) -> str:
+        """One plan-trusted weight audit through the full ladder; swaps
+        repaired/restored params in and records the verdict on every
+        active request's ledger. Returns the verdict."""
+        self.params = self.auditor.audit_or_restore(self.params)
+        verdict = self.auditor.last_verdict
+        if verdict == "repaired":
+            # single-block weight corruption was solved in place
+            # mid-session: record the repair time and keep serving
+            # without dropping a request
+            self.stats.repair_s.append(self.auditor.last_repair_s)
+        for req in self.scheduler.active.values():
+            self.stats.record(req.id).audit_verdicts.append(verdict)
+        return verdict
+
     def step(self) -> bool:
-        """One scheduler tick: admit+prefill, then one decode step over
-        all slots. Returns True while work remains."""
+        """One scheduler tick: audit cadence, admit+prefill, then one
+        decode step over all slots. Returns True while work remains."""
+        if (self.plan is not None and self.audit_every
+                and self._step_count % self.audit_every == 0):
+            self._run_audit()
         self._step_count += 1
         self.stats.counters["steps"] += 1
 

@@ -577,3 +577,78 @@ def test_serving_slice_on_card(cuda_device):
             assert TW.HOST_READS == 15 * forwards
         tokens[mode] = [sess.tokens_for(r) for r in rids]
     assert tokens["deferred"] == tokens["per_layer"]
+
+
+@pytest.mark.parametrize("layer", ["matmul", "conv", "transformer_gemm"])
+def test_campaign_cell_per_layer_on_card(cuda_device, layer):
+    """64 trials of every registered arm of one layer on the card, in the
+    full and deferred schemes: every gate of the campaign's check holds,
+    and deferred gives full's detection rate and scheme histogram."""
+    from repro_torch.campaign import CampaignEngine, CampaignResult
+    from repro_torch.campaign.run import check
+    eng = CampaignEngine(device=cuda_device)
+    res = eng.run([layer], ["full", "deferred"], trials=64, seed=0)
+    assert check(res) == []
+    assert res.meta["device"] == torch.cuda.get_device_name(cuda_device)
+    for c in res.cells:
+        if c.scheme == "deferred":
+            f = res.cell(layer, "full", c.fault)
+            assert c.detection_rate == f.detection_rate, c.fault
+            assert c.corrected_by == f.corrected_by, c.fault
+    assert isinstance(res, CampaignResult)
+
+
+def test_weight_repair_on_card_matches_cpu(cuda_device):
+    """The campaign's f32 repair and the audit's float64 repair on the
+    card give the CPU's verdicts; the float64 repairs are bitwise the
+    CPU's (and the clean weight), the f32 ones within the campaign's
+    tolerance."""
+    from repro_torch.core import weight_repair as WR
+    from repro_torch.runtime import ft
+    w = normal(2, (3, 96, 256))
+    wlc = tcore.stacked_weight_locators_matmul(torch.as_tensor(w), 64)
+    cases = []
+    one = w.copy()
+    one[1, 40, 70] += 977.0
+    col = w.copy()
+    col[2, :, 130] = 2.0 ** 9
+    two = w.copy()
+    two[0, 3, 3] += 977.0
+    two[2, 5, 200] -= 55.0
+    cases = [(one, WR.REPAIRED), (col, WR.REPAIRED), (two, WR.ESCALATE),
+             (w, WR.CLEAN)]
+    for bad, want in cases:
+        for dtype, rtol in ((torch.float64, WR.HOST_RTOL),
+                            (torch.float32, WR.REPAIR_RTOL)):
+            tol = float(WR.locator_tol(wlc, rtol))
+            out = {}
+            for dev in ("cpu", cuda_device):
+                f, v = WR.repair_stacked_matmul_weight(
+                    torch.as_tensor(bad).to(dev), wlc, tol, dtype=dtype)
+                out[str(dev)] = (f.to(torch.float32).cpu(), int(v))
+            (fc, vc), (fg, vg) = out.values()
+            assert vc == vg == want, (dtype, want)
+            if dtype == torch.float64:
+                assert torch.equal(fc, fg)
+                if want == WR.REPAIRED:
+                    assert torch.equal(fg, torch.as_tensor(w))
+            else:
+                assert_close(fg, fc, 0, 2e-2, "f32 repair")
+    # the audit ladder through a plan on the card: bf16 leaf, bitwise
+    wb = torch.as_tensor(normal(4, (256, 192))).to(torch.bfloat16)
+    plans = {dev: tcore.ProtectionPlan(entries={"fc": tcore.matmul_entry(
+        "fc", wb.to(dev), tcore.DEFAULT_CONFIG.replace(col_chunk=64))})
+        for dev in ("cpu", "cuda")}
+    leaves = {}
+    for dev, plan in plans.items():
+        bad = wb.to(dev).clone()
+        bad[17, 100] = 300.0
+        ok, flagged = ft.audit_weights_against_plan({"fc": {"w": bad}}, plan)
+        assert not ok
+        fixed, repaired = ft.repair_weights_against_plan(
+            {"fc": {"w": bad}}, plan, flagged)
+        assert repaired == ["fc"]
+        leaves[dev] = tcore.weight_leaf(fixed, "fc").cpu()
+    assert torch.equal(leaves["cpu"].view(torch.int16),
+                       leaves["cuda"].view(torch.int16))
+    assert torch.equal(leaves["cuda"].view(torch.int16), wb.view(torch.int16))

@@ -75,6 +75,20 @@ def test_serving_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         ProtectedSession(params, cfg, device="meta")
 
 
+def test_campaign_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.campaign import CampaignEngine, run_campaign
+    from repro_torch.campaign.run import main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CampaignEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_campaign(trials=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--trials", "1", "--layers", "matmul", "--faults", "burst",
+              "--no-check"])
+    assert CampaignEngine(device="cpu").device == torch.device("cpu")
+
+
 def test_forward_rejects_tensors_off_its_device():
     cfg = tcnn.alexnet(0.12)
     params = tcnn.init_cnn(cfg, device="cpu")

@@ -18,7 +18,7 @@ from repro_torch.core import injection as tinj  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.serving import (ProtectedSession, SlotScheduler,  # noqa: E402
                                  bucket_for, greedy_reference)
-from torch_parity import tree_np  # noqa: E402
+from torch_parity import to_np, tree_np  # noqa: E402
 
 ARCH = "smollm-360m-smoke"
 MAX_LEN = 24
@@ -225,11 +225,145 @@ def test_session_decode_fault_localized_to_slot(served, kernels):
 
 def test_session_refuses_what_is_not_ported(served):
     cfg, _, params, plan = served
-    for kw, item in ((dict(mesh=object()), "1.12"),
-                     (dict(audit_every=2), "1.8"),
-                     (dict(restore_fn=lambda: params), "1.8")):
-        with pytest.raises(NotImplementedError, match=item):
-            ProtectedSession(params, cfg, plan, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="1.12"):
+        ProtectedSession(params, cfg, plan, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="needs a ProtectionPlan"):
         ProtectedSession(params, cfg, None, correction="deferred",
                          device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# plan-trusted weight audits on the session cadence
+# ---------------------------------------------------------------------------
+
+def _audited_entry(plan):
+    return next(n for n, e in plan.entries.items()
+                if n.startswith("stages/") and e.wlc is not None)
+
+
+def _corrupt(params, name, flips=1):
+    """A copy of the params with `flips` elements of `name`'s leaf raised
+    by 977: flip i lands at index (i,)*ndim, so two flips hit distinct
+    repeats, rows AND columns - beyond the single-block repair."""
+    bad = {k: v for k, v in params.items()}
+    parts = name.split("/")
+    parent, src = bad, params
+    for part in parts[:-1]:
+        parent[part] = dict(src[part])
+        parent, src = parent[part], src[part]
+    leaf = dict(src[parts[-1]])
+    w = leaf["w"].clone()
+    for i in range(flips):
+        w[(i,) * w.dim()] += 977.0
+    leaf["w"] = w
+    parent[parts[-1]] = leaf
+    return bad
+
+
+def _jax_corrupt(pj, name, flips=1):
+    bad = jax.tree.map(lambda x: x, pj)
+    parts = name.split("/")
+    parent = bad
+    for part in parts[:-1]:
+        parent = parent[part]
+    w = parent[parts[-1]]["w"]
+    for i in range(flips):
+        w = w.at[(i,) * w.ndim].add(jax.numpy.asarray(977.0, w.dtype))
+    parent[parts[-1]]["w"] = w
+    return bad
+
+
+def test_session_audit_refuses_corrupt_weights(served):
+    """Two flips sit beyond the in-place repair rung, and without a
+    restore_fn the session refuses to serve - in both packages."""
+    from repro.core import build_plan as jbuild
+    from repro.runtime.ft import WeightDivergenceError as JErr
+    from repro.serving import ProtectedSession as JSession
+    from repro_torch.runtime.ft import WeightDivergenceError
+    cfg, pj, params, plan = served
+    name = _audited_entry(plan)
+    sess = ProtectedSession(_corrupt(params, name, flips=2), cfg, plan,
+                            slots=1, max_len=MAX_LEN, audit_every=1,
+                            device="cpu")
+    sess.submit(_prompts(cfg, (5,))[0], max_new_tokens=2)
+    with pytest.raises(WeightDivergenceError):
+        sess.run()
+    assert sess.stats.counters["weight_audits"] == 1
+    assert sess.stats.counters["weight_repairs"] == 0
+    cfg_j = JCF.get(ARCH)
+    jplan = jbuild(pj, cfg_j, batch=2, seq=MAX_LEN)
+    assert _audited_entry(jplan) == name
+    jsess = JSession(_jax_corrupt(pj, name, flips=2), cfg_j, jplan,
+                     slots=1, max_len=MAX_LEN, audit_every=1)
+    jsess.submit(_prompts(cfg, (5,))[0], max_new_tokens=2)
+    with pytest.raises(JErr):
+        jsess.run()
+
+
+def test_session_audit_restores_and_serves(served):
+    """Multi-block damage escalates to the restore rung; the restored
+    params serve the clean tokens."""
+    cfg, _, params, plan = served
+    name = _audited_entry(plan)
+    sess = ProtectedSession(_corrupt(params, name, flips=2), cfg, plan,
+                            slots=1, max_len=MAX_LEN, audit_every=1,
+                            restore_fn=lambda: params, device="cpu")
+    p = _prompts(cfg, (5,))[0]
+    rid = sess.submit(p, max_new_tokens=3)
+    report = sess.run()
+    c = report["counters"]
+    assert c["weight_restores"] == 1 and c["weight_repairs"] == 0
+    assert c["weight_audits"] >= 2          # the restore is re-audited
+    assert sess.params is params
+    rec = {r["id"]: r for r in report["requests"]}[rid]
+    assert "clean" in rec["audit_verdicts"]
+    ucfg = cfg.replace(abft=False)
+    assert sess.tokens_for(rid) == greedy_reference(params, ucfg, p, 3,
+                                                    MAX_LEN)
+
+
+def test_session_mid_stream_repair_keeps_serving(served):
+    """A weight element flips while a request is mid-stream. The next
+    audit solves the block in place from the plan's locator sums - no
+    restore, no dropped request - the leaf is bitwise the original and
+    equal to the JAX package's repair of the same damage, and the tokens
+    stay the clean reference's."""
+    from repro.core import build_plan as jbuild
+    from repro.runtime import ft as jft
+    from repro_torch.runtime import ft
+    cfg, pj, params, plan = served
+    gen = 6
+    p = _prompts(cfg, (5,))[0]
+    name = _audited_entry(plan)
+    sess = ProtectedSession(params, cfg, plan, slots=1, max_len=MAX_LEN,
+                            audit_every=1, device="cpu")
+    rid = sess.submit(p, max_new_tokens=gen)
+    for _ in range(2):
+        assert sess.step()           # prefill + decode on clean weights
+    sess.params = _corrupt(sess.params, name)
+    while sess.step():
+        pass
+    report = sess.stats.report()
+    c = report["counters"]
+    assert c["weight_repairs"] == 1 and c["weight_restores"] == 0
+    assert c["dropped"] == 0
+    assert report["mttr_repair_s"] is not None and report["mttr_repair_s"] > 0
+    rec = {r["id"]: r for r in report["requests"]}[rid]
+    assert "repaired" in rec["audit_verdicts"]
+    assert rec["finish_reason"] == "length"
+    got = tcore.weight_leaf(sess.params, name)
+    assert torch.equal(got, tcore.weight_leaf(params, name))
+    ucfg = cfg.replace(abft=False)
+    assert sess.tokens_for(rid) == greedy_reference(params, ucfg, p, gen,
+                                                    MAX_LEN)
+    # the JAX package's ladder on the same damage: the same divergence
+    # list, and the same repaired leaf
+    jplan = jbuild(pj, JCF.get(ARCH), batch=2, seq=MAX_LEN)
+    jbad = _jax_corrupt(pj, name)
+    ok_j, bad_j = jft.audit_weights_against_plan(jbad, jplan)
+    ok_t, bad_t = ft.audit_weights_against_plan(_corrupt(params, name), plan)
+    assert not ok_j and not ok_t and bad_j == bad_t
+    fixed_j, rep_j = jft.repair_weights_against_plan(jbad, jplan, bad_j)
+    assert rep_j == [name]
+    np.testing.assert_array_equal(
+        to_np(got), np.asarray(tcore.weight_leaf(fixed_j, name)))
