@@ -74,7 +74,29 @@ Phases, each fatal on failure:
      cell per layer (64 trials per arm) against the port's own CPU run
      (no detected or residual mismatch; corrected_by may differ only
      between two correcting verdicts, in at most 1% of the trials);
-     CSV rows and us per trial.
+     CSV rows and us per trial;
+  9. the calibrated plan on phase 4's ResNet-18: the card's peaks measured
+     (an IEEE-fp32 8192^3 GEMM and a 256 MiB-per-array triad; each within
+     105% of the datasheet), the measured-roofline plan
+     (MeasuredCostModel, profile_kernels=True: each site's intensity,
+     bound, execution membership, profiled or pruned) and the analytic
+     plan with every shape profiled (plain and kernel-route us, the
+     winner, the tiling the CUDA source chose); the measured plan in
+     deferred mode: zero clean flags, logits bitwise the unprotected
+     ones, one host read per per_layer member plus one, a registry burst
+     at a per_layer and at a deferred member detected and corrected; the
+     new plans' launches per forward, their forwards timed in turns with
+     the unprotected one and phase 4's pinned plan (error-free overhead);
+     the profile's decisions for SmolLM-360M at batch 8 x seq 128;
+  10. the async ServingDriver on phase 6's model, plan and 16 requests:
+     every request completes with phase 6's tokens, 225 detect launches
+     and 1 host read per forward; backpressure (capacity 4: 12 of 16
+     rejected, the 4 accepted served) and a lapsed deadline (timeout,
+     never a slot); phase 7's head drill under a fault_scope around
+     submit/drain, attributed to slot 3's request only; phase 7b's
+     one-column corruption repaired in place by the controller's audit
+     while requests are admitted; the driver and the session timed in
+     turns, three rounds (decode step period, TTFT p50).
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -1053,7 +1075,8 @@ def run_slice(report):
     res["erroneous"] = run_erroneous(params, x, cfg, fused, logits, scale,
                                      unprot, times)
     report["slice"] = res
-    return res
+    return res, {"params": params, "x": x, "cfg": cfg, "fused": fused,
+                 "unprot": unprot, "l0": l0}
 
 
 def run_erroneous(params, x, cfg, fused, logits, scale, unprot,
@@ -1394,7 +1417,25 @@ def run_serving(report):
     res["audit"] = run_audit_drills(params, cfg, fused, drill_prompts,
                                     clean)
     report["serving"] = res
-    return res
+    return res, {"params": params, "cfg": cfg, "fused": fused,
+                 "prompts": prompts, "tokens": [tokens[r] for r in rids]}
+
+
+AUDIT_ENTRY = "stages/b0_attn_full/attn/wq"
+
+
+def corrupt_one_column(w, gen) -> str:
+    """The weight_corrupt_correctable damage class, drawn by the
+    registry: 1..100 elements of one column of the middle repeat of a
+    stacked (reps, K, M) leaf overwritten in place."""
+    from repro_torch.core import injection as inj
+    model = inj.FAULT_MODELS["weight_corrupt_correctable"]
+    r = int(w.shape[0]) // 2
+    k, m = int(w.shape[1]), int(w.shape[2])
+    spec = model.plan(gen, k, m, 1, 100)
+    w[r].copy_(inj.inject(w[r], spec.to(w.device), model))
+    return (f"repeat {r}, column {int(spec.index)}: {int(spec.nelem)} "
+            f"elements set to {float(spec.add):g}")
 
 
 def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
@@ -1408,14 +1449,13 @@ def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
     one. Drill 2 corrupts two blocks: the ladder restores. Both serve the
     clean run's tokens; the deferred detect kernel carries every forward."""
     import torch
-    from repro_torch.core import injection as inj
     from repro_torch.core import weight_leaf, workflow
     from repro_torch.kernels import abft_matmul as AM
     from repro_torch.runtime import ft
     from repro_torch.serving import ProtectedSession
 
     log("phase 7b: the serving weight audit")
-    name = "stages/b0_attn_full/attn/wq"
+    name = AUDIT_ENTRY
     if name not in plan:
         fail(f"the plan has no entry {name}")
     clone = lambda t: ({k: clone(v) for k, v in t.items()}
@@ -1433,7 +1473,6 @@ def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
         if not ok:
             fail(f"clean weights fail the audit: {bad[:3]}")
     gen = torch.Generator().manual_seed(SEED + 7)
-    model = inj.FAULT_MODELS["weight_corrupt_correctable"]
     out = {"audit_ms": aud_ms, "entry": name}
 
     def drill(label, corrupt):
@@ -1476,13 +1515,7 @@ def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
             fail(f"{label}: {res}")
         return res
 
-    def one_column(w):
-        r = int(w.shape[0]) // 2
-        k, m = int(w.shape[1]), int(w.shape[2])
-        spec = model.plan(gen, k, m, 1, 100)
-        w[r].copy_(inj.inject(w[r], spec.to(w.device), model))
-        return (f"repeat {r}, column {int(spec.index)}: {int(spec.nelem)} "
-                f"elements set to {float(spec.add):g}")
+    one_column = lambda w: corrupt_one_column(w, gen)
 
     def two_blocks(w):
         reps, k, m = (int(d) for d in w.shape)
@@ -1524,6 +1557,490 @@ def run_audit_drills(params, cfg, plan, prompts, clean) -> dict:
         f"{[round(a, 2) for a in rep_ms]}")
     out.update({"repair": r1, "restore": r2, "warm_repair_ms": rep_ms})
     return out
+
+
+# --------------------------------------------------------------------------
+# phase 9: the calibrated plan
+# --------------------------------------------------------------------------
+
+def conv_sums_tiling(n: int, m: int, p: int):
+    """(column tiles, row groups) of a conv-sums launch over fp32
+    O[n, m, p] as the CUDA source tiles it, read back from its layout
+    (counters: one per column tile and one more; scratch: rg * (3p +
+    column tiles) floats when rg > 1, one per column tile otherwise)."""
+    import torch
+    from repro_torch.kernels import checksum_reduce as CR
+    floats, counters = CR.conv_sums_layout(n, m, p, torch.float32)
+    ct, scratch = counters - 1, floats - 3 * p - 1
+    return ct, (1 if scratch == ct else scratch // (3 * p + ct))
+
+
+def fmt_us(v) -> str:
+    """A profile's microseconds; None where the kernel route cannot run."""
+    return "no kernel route" if v is None else f"{v:.1f} us"
+
+
+def profile_key(site):
+    """build_plan's memo key of a site's kernel profile: a conv's output
+    view (n, m, e), a GEMM's (n, k, m)."""
+    s = site.shape
+    return ("conv", s.n, s.m, s.h) if site.op.kind == "conv" \
+        else ("mm", s.n, s.ch, s.m)
+
+
+def log_profiles(plan, spec) -> list:
+    """One line per distinct profile key of a profiled plan: the sites,
+    plain and kernel-route us, the winner, and the tiling the CUDA source
+    chose for the kernel route (f32, as profiled)."""
+    import torch
+    from repro_torch.kernels import abft_matmul as AM
+    kp = plan.meta["kernel_profile"]
+    groups = {}
+    for site in spec.sites:
+        if site.path in kp:
+            groups.setdefault(profile_key(site), []).append(site.path)
+    rows = []
+    for key, paths in groups.items():
+        d = kp[paths[0]]
+        if d.get("skipped"):
+            continue
+        if key[0] == "conv":
+            _, n, m, e = key
+            ct, rg = conv_sums_tiling(n, m, e * e)
+            tiling = f"conv sums {ct} column tiles x {rg} row groups"
+        else:
+            _, n, k, m = key
+            t = AM.kernel_tiling(n, k, m, torch.float32)
+            tiling = f"abft_matmul tile {t.tm}x{t.tn}, {t.splits} splits"
+        winner = "kernel" if d["use_fused"] else "plain"
+        names = [q.split("/")[-1] for q in paths]
+        log(f"    {key}: {', '.join(dict.fromkeys(names))} ({len(paths)} "
+            f"sites): plain {fmt_us(d['plain_us'])}, kernel route "
+            f"{fmt_us(d['fused_us'])} -> {winner}; {tiling}")
+        rows.append({"key": list(key), "sites": paths, **d,
+                     "winner": winner, "tiling": tiling})
+    return rows
+
+
+def run_calibrated_plan(report, slice_ctx) -> dict:
+    """Phase 9: the paper's offline profiling step on full-width
+    ResNet-18. The card's peaks measured (refresh, cache under build/);
+    the measured-roofline plan (MeasuredCostModel, profile_kernels=True:
+    per-site roofline verdict, execution membership, the prune) and the
+    analytic plan with every shape profiled, each printed; the measured
+    plan checked in deferred mode (clean: no flag, logits bitwise the
+    unprotected ones, one host read per per_layer member plus one; a
+    registry burst at a per_layer member and at a deferred member:
+    detected, residual 0, logits back within rtol 1e-4); the new plans'
+    launches per forward, their forwards timed in turns with the
+    unprotected one and phase 4's pinned plan; and the decisions of
+    build_plan(profile_kernels=True) for SmolLM-360M (policy only)."""
+    import torch
+    from repro_torch import configs, core
+    from repro_torch.core import injection as inj
+    from repro_torch.core import workflow
+    from repro_torch.core.cost_model import MeasuredCostModel, measure_peaks
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import checksum_reduce as CR
+    from repro_torch.models import cnn
+
+    log("phase 9: the calibrated plan")
+    params, x, cfg = slice_ctx["params"], slice_ctx["x"], slice_ctx["cfg"]
+    fused, unprot, l0 = (slice_ctx["fused"], slice_ctx["unprot"],
+                         slice_ctx["l0"])
+    cache = str(ROOT / "build" / "roofline_cache.json")
+    t0 = time.perf_counter()
+    peaks = measure_peaks(cache_path=cache, refresh=True, device=DEVICE)
+    peaks_s = time.perf_counter() - t0
+    log(f"  measured peaks ({peaks_s:.1f} s): IEEE-fp32 GEMM "
+        f"{peaks.peak_flops / 1e12:.2f} TFLOP/s ({peaks.peak_flops / FP32_FLOPS_PER_S * 100:.1f}% "
+        f"of the datasheet's 67), triad {peaks.hbm_bw / 1e12:.3f} TB/s "
+        f"({peaks.hbm_bw / HBM_BYTES_PER_S * 100:.1f}% of 3.35); ridge "
+        f"{peaks.ridge:.2f} FLOP/B (datasheet "
+        f"{FP32_FLOPS_PER_S / HBM_BYTES_PER_S:.2f})")
+    if peaks.source != "measured":
+        fail(f"peaks not measured: source {peaks.source}")
+    if (peaks.peak_flops > 1.05 * FP32_FLOPS_PER_S
+            or peaks.hbm_bw > 1.05 * HBM_BYTES_PER_S):
+        fail(f"peaks above 105% of the datasheet: {peaks.doc()}")
+    mcm = MeasuredCostModel.from_host(cache_path=cache, device=DEVICE)
+    res = {"peaks": peaks.doc(), "peaks_s": peaks_s,
+           "detect_chunk": mcm.detect_chunk(1024)}
+
+    spec = core.protection_spec(cfg, batch=BATCH)
+    t0 = time.perf_counter()
+    measured = core.build_plan(params, cfg, cost_model=mcm, batch=BATCH,
+                               profile_kernels=True, device=DEVICE)
+    torch.cuda.synchronize()
+    res["measured_build_s"] = time.perf_counter() - t0
+    roof, kpm = measured.meta["roofline"], measured.meta["kernel_profile"]
+    inline = [n for n in measured.names()
+              if measured[n].execution == "per_layer"]
+    deferred = [n for n in measured.names()
+                if measured[n].execution == "deferred"]
+    log(f"  measured plan ({res['measured_build_s']:.1f} s): "
+        f"{len(inline)} per_layer + {len(deferred)} deferred members, "
+        f"detection chunk {res['detect_chunk']}")
+    sites = []
+    for site in spec.sites:
+        n, r, d = site.path, roof[site.path], kpm[site.path]
+        what = ("pruned" if d.get("skipped") else
+                f"profiled: plain {fmt_us(d['plain_us'])}, kernel route "
+                f"{fmt_us(d['fused_us'])} -> "
+                f"{'kernel' if d['use_fused'] else 'plain'}")
+        log(f"    {n}: intensity {r['intensity']:.1f} FLOP/B, "
+            f"{r['bound']}-bound, {measured[n].execution}, {what}")
+        sites.append({"site": n, "intensity": r["intensity"],
+                      "bound": r["bound"],
+                      "execution": measured[n].execution, **d})
+    res["measured"] = {"sites": sites, "inline": inline,
+                       "deferred": deferred}
+
+    t0 = time.perf_counter()
+    profiled = core.build_plan(params, cfg, batch=BATCH,
+                               profile_kernels=True, device=DEVICE)
+    torch.cuda.synchronize()
+    res["profiled_build_s"] = time.perf_counter() - t0
+    log(f"  analytic plan, every shape profiled "
+        f"({res['profiled_build_s']:.1f} s; {len(spec.sites)} sites):")
+    res["profiled"] = log_profiles(profiled, spec)
+    pruned_wins = [n for n in measured.names()
+                   if kpm[n].get("skipped")
+                   and profiled.meta["kernel_profile"][n]["use_fused"]]
+    res["pruned_where_kernel_wins"] = pruned_wins
+    log(f"  sites the roofline prune keeps on the plain route where the "
+        f"analytic profile picks the kernel: {pruned_wins or 'none'}")
+
+    # -- the measured plan in deferred mode: clean ---------------------------
+    CR.LAUNCHES = AM.LAUNCHES = workflow.HOST_READS = 0
+    lm, rep = cnn.forward_cnn(params, x, cfg, plan=measured,
+                              correction="deferred")
+    torch.cuda.synchronize()
+    launches = {"measured/deferred": (CR.LAUNCHES, AM.LAUNCHES)}
+    reads = workflow.HOST_READS
+    bad = {n: v for n, v in rep.summary().items()
+           if v["detected"] or v["residual"]}
+    want_reads = len(inline) + (1 if deferred else 0)
+    scale = float(l0.abs().max()) + 1.0
+    fc_kernel = measured["fc"].cfg.use_fused_kernel
+    same = torch.equal(lm, l0)
+    log(f"  measured plan, deferred, clean: flags "
+        f"{sum(v['detected'] for v in rep.summary().values())}/"
+        f"{len(measured)}, host reads {reads} (want {want_reads}), "
+        f"launches (conv sums, abft_matmul) {launches['measured/deferred']}, "
+        f"logits bitwise the unprotected ones: {same}")
+    if bad:
+        fail(f"measured plan: clean forward reported {bad}")
+    if reads != want_reads:
+        fail(f"measured plan: {reads} host reads, want {want_reads}")
+    if not (same or (fc_kernel and max_err(lm, l0) <= 1e-5 * scale)):
+        fail(f"measured plan: logits differ from the unprotected forward "
+             f"(max |diff| {max_err(lm, l0):.3g})")
+
+    # -- a registry burst at a per_layer member and at a deferred member -----
+    model = inj.FAULT_MODELS["burst"]
+    gen = torch.Generator().manual_seed(SEED + 9)
+    drills = {}
+    targets = [("per_layer", inline), ("deferred", deferred)]
+    for membership, members in targets:
+        if not members:
+            fail(f"the measured plan has no {membership} member")
+        site = members[len(members) // 2]
+        if site.startswith("conv"):
+            layer = int(site[len("conv"):])
+            _, o_clean = cnn.conv_output_at(params, x, cfg, layer)
+            sp = model.plan(gen, o_clean.shape[0], o_clean.shape[1],
+                            o_clean.shape[2] * o_clean.shape[3], 100)
+            o_bad = inj.inject(o_clean, sp.to(o_clean.device), model)
+            lg, rep = cnn.forward_cnn(params, x, cfg, plan=measured,
+                                      correction="deferred",
+                                      inject_layer=layer, inject_o=o_bad)
+        else:
+            sp = model.plan(gen, BATCH, cfg.num_classes, 1, 100)
+            hook = lambda o, sp=sp: inj.inject(o, sp.to(o.device), model)
+            with inj.fault_scope(site, hook):
+                lg, rep = cnn.forward_cnn(params, x, cfg, plan=measured,
+                                          correction="deferred")
+        summ = rep.summary()
+        v = summ[site]
+        others = {k: w for k, w in summ.items()
+                  if k != site and w["detected"]}
+        d_l = max_err(lg, lm)
+        log(f"  burst at {site} ({membership}; axis {int(sp.axis)}, "
+            f"{int(sp.nelem)} elements, scale {float(sp.scale):g}): "
+            f"detected {v['detected']}, corrected_by {v['corrected_by']}, "
+            f"residual {v['residual']}, logits max |diff| {d_l:.3g}")
+        if not (v["detected"] == 1 and v["residual"] == 0
+                and v["corrected_by"] != "none" and not others
+                and torch.allclose(lg, lm, rtol=1e-4, atol=1e-4 * scale)):
+            fail(f"measured plan, burst at {site}: {v}, others {others}, "
+                 f"logit diff {d_l:.3g}")
+        drills[site] = {**v, "membership": membership,
+                        "logit_max_diff": d_l}
+    res["drills"] = drills
+
+    # -- launches per forward and times in turns ------------------------------
+    for mode in ("per_layer", "deferred"):
+        CR.LAUNCHES = AM.LAUNCHES = 0
+        cnn.forward_cnn(params, x, cfg, plan=profiled, correction=mode)
+        torch.cuda.synchronize()
+        launches[f"profiled/{mode}"] = (CR.LAUNCHES, AM.LAUNCHES)
+    res["launches"] = launches
+    log("  launches per clean forward (conv sums, abft_matmul): " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    fwd = lambda plan, mode: (lambda: cnn.forward_cnn(params, x, cfg,
+                                                      plan=plan,
+                                                      correction=mode))
+    times = time_host({
+        "unprotected": unprot,
+        "pinned/per_layer": fwd(fused, "per_layer"),
+        "pinned/deferred": fwd(fused, "deferred"),
+        "measured/deferred": fwd(measured, "deferred"),
+        "profiled/per_layer": fwd(profiled, "per_layer"),
+        "profiled/deferred": fwd(profiled, "deferred"),
+    })
+    res["forward_ms"] = times
+    log("  median forward ms in turns: " + " ".join(
+        f"{k}={v:.3f}" for k, v in times.items()))
+    log("  error-free overhead: " + ", ".join(
+        f"{k} {(v / times['unprotected'] - 1) * 100:.1f}%"
+        for k, v in times.items() if k != "unprotected"))
+
+    # -- SmolLM-360M: the profile's decisions ---------------------------------
+    scfg = configs.get(SERVE_ARCH)
+    sspec = core.protection_spec(scfg, batch=SLOTS, seq=128)
+    t0 = time.perf_counter()
+    splan = core.build_plan(None, scfg, batch=SLOTS, seq=128,
+                            profile_kernels=True, device=DEVICE)
+    torch.cuda.synchronize()
+    res["smollm_build_s"] = time.perf_counter() - t0
+    log(f"  {SERVE_ARCH} at batch {SLOTS} x seq 128, every GEMM profiled "
+        f"in float32 as the reference does ({res['smollm_build_s']:.1f} s; "
+        f"{len(sspec.sites)} sites):")
+    res["smollm"] = log_profiles(splan, sspec)
+    report["calibrated"] = res
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: the async serving driver
+# --------------------------------------------------------------------------
+
+def step_period_ms(decode_log) -> float:
+    """Median milliseconds between consecutive decode launches."""
+    at = [e["launched_at"] for e in decode_log]
+    return statistics.median((b - a) * 1e3 for a, b in zip(at, at[1:]))
+
+
+def drive(params, cfg, plan, prompts, gen: int, paused=False, hook=None,
+          **kw):
+    """One ServingDriver over `prompts`: (driver, verdicts, report). The
+    requests are submitted from this thread (inside `paused()` when
+    `paused`, so they are admitted together) under `hook`'s fault_scope,
+    which the driver's threads inherit; drain, then close."""
+    import contextlib
+    from repro_torch.core import injection
+    from repro_torch.serving import ServingDriver
+    d = ServingDriver(params, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+                      device=DEVICE, **kw)
+    scope = injection.fault_scope(*hook) if hook else contextlib.nullcontext()
+    try:
+        with scope:
+            with d.paused() if paused else contextlib.nullcontext():
+                verdicts = [d.submit(p, max_new_tokens=gen) for p in prompts]
+            report = d.drain(timeout=900)
+    finally:
+        d.close()
+    return d, verdicts, report
+
+
+def run_driver_phase(report, serve_ctx) -> dict:
+    """Phase 10: phase 6's SmolLM-360M served by the async ServingDriver
+    (8 slots, 256 positions, deferred, the kernels pinned) on the same 16
+    requests: every request completes with phase 6's tokens, 225 detect
+    launches and one host read per forward; backpressure (capacity 4, 16
+    submitted at once: the rest rejected, the accepted served) and a
+    lapsed deadline (timeout, never a slot); phase 7's head drill under a
+    fault_scope around submit/drain, attributed to the requests of slot 3
+    only; phase 7b's one-column corruption repaired in place by the
+    controller's audit while requests are admitted; and the driver timed
+    against the synchronous session in turns (step period, TTFT p50)."""
+    import torch
+    from repro_torch.core import weight_leaf, workflow
+    from repro_torch.kernels import abft_matmul as AM
+
+    log("phase 10: the async serving driver")
+    params, cfg, fused = (serve_ctx["params"], serve_ctx["cfg"],
+                          serve_ctx["fused"])
+    prompts, tokens = serve_ctx["prompts"], serve_ctx["tokens"]
+    n_sites = cfg.stages()[1] * 7 + 1
+    res = {}
+
+    # -- the main path ---------------------------------------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    d, vs, rep = drive(params, cfg, fused, prompts, GEN)
+    c = rep["counters"]
+    forwards = c["prefills"] + c["decode_steps"]
+    launches = {"abft_matmul_detect": AM.DETECT_LAUNCHES,
+                "abft_matmul": AM.LAUNCHES}
+    reads = workflow.HOST_READS
+    same = [d.tokens_for(v.rid) for v in vs] == tokens
+    reasons = [r["finish_reason"] for r in rep["requests"]]
+    log(f"  driver: {rep['completed']} requests, {c['prefills']} prefills + "
+        f"{c['decode_steps']} decode steps, launches {launches}, host reads "
+        f"{reads}, faults {c['faults_detected']}; tokens == phase 6: {same}")
+    if not all(v.accepted for v in vs) or reasons != ["length"] * N_REQ:
+        fail(f"driver: verdicts {vs}, finished {reasons}")
+    if c["faults_detected"] or c["dropped"] or not same:
+        fail(f"driver: counters {c}, tokens equal {same}")
+    if launches != {"abft_matmul_detect": n_sites * forwards,
+                    "abft_matmul": 0} or reads != forwards:
+        fail(f"driver: {forwards} forwards launched {launches} with {reads} "
+             f"host reads; want {n_sites} detect launches and 1 read each")
+    res["main"] = {"counters": c, "launches": launches, "host_reads": reads,
+                   "forwards": forwards}
+
+    # -- backpressure and a lapsed deadline ----------------------------------------
+    from repro_torch.serving import ServingDriver
+    d = ServingDriver(params, cfg, fused, slots=SLOTS, max_len=MAX_LEN,
+                      queue_capacity=4, device=DEVICE)
+    try:
+        with d.paused():
+            dead = d.submit(prompts[0], max_new_tokens=8, deadline_s=1e-3)
+            t0 = time.monotonic()
+            while d.stats.record(dead.rid).finish_reason != "timeout":
+                if time.monotonic() - t0 > 30:
+                    fail("the lapsed request was not swept")
+                time.sleep(0.01)
+            vs = [d.submit(p, max_new_tokens=8) for p in prompts]
+        rep = d.drain(timeout=900)
+    finally:
+        d.close()
+    acc = [i for i, v in enumerate(vs) if v.accepted]
+    rej = [v.reason for v in vs if not v.accepted]
+    recs = {r["id"]: r for r in rep["requests"]}
+    dr = recs[dead.rid]
+    ok = (len(acc) == 4 and rej == ["queue_full"] * (N_REQ - 4)
+          and rep["completed"] == 4
+          and all(d.tokens_for(vs[i].rid) == tokens[i][:8] for i in acc)
+          and dr["finish_reason"] == "timeout" and dr["slot"] is None
+          and dr["admitted_at"] is None
+          and rep["counters"]["timeouts"] == 1)
+    log(f"  capacity 4, {N_REQ} submitted at once: accepted {len(acc)}, "
+        f"rejected {len(rej)} ({set(rej)}), completed {rep['completed']} "
+        f"with phase 6's tokens; lapsed deadline: {dr['finish_reason']}, "
+        f"slot {dr['slot']}")
+    if not ok:
+        fail(f"backpressure/deadline: accepted {acc}, rejected {rej}, "
+             f"lapsed {dr}, counters {rep['counters']}")
+    res["backpressure"] = {"accepted": len(acc), "rejected": len(rej),
+                           "lapsed": dr["finish_reason"]}
+
+    # -- phase 7's head drill under a fault_scope around submit/drain -------------
+    target = 3
+    drill_prompts, clean = prompts[:SLOTS], [t[:8] for t in tokens[:SLOTS]]
+
+    def decode_hook(o):
+        if o.dim() == 3 and o.shape[0] == SLOTS and o.shape[1] == 1:
+            o = o.clone()
+            o[target, 0, 1234 % o.shape[-1]] += 1e4
+        return o
+
+    d, vs, rep = drive(params, cfg, fused, drill_prompts, 8, paused=True,
+                       hook=("embed/table", decode_hook))
+    recs = {r["id"]: r for r in rep["requests"]}
+    by_slot = {recs[v.rid]["slot"]: recs[v.rid] for v in vs}
+    cd = rep["counters"]
+    hit_slots = sorted({i for e in d.stats.decode_log
+                        for i, h in enumerate(e["hit"]) if h})
+    t_rec = by_slot[target]
+    ok = (t_rec["faults_detected"] >= 1
+          and t_rec["corrections_applied"] == t_rec["faults_detected"]
+          and t_rec["residuals"] == 0
+          and all(v["faults_detected"] == 0 for sl, v in by_slot.items()
+                  if sl != target)
+          and cd["residual_steps"] == 0 and hit_slots == [target])
+    same = [d.tokens_for(v.rid) for v in vs] == clean
+    log(f"  decode fault at embed/table, slot {target}, scope around "
+        f"submit/drain: {cd['faults_detected']} detected / "
+        f"{cd['faults_corrected']} corrected over {cd['decode_steps']} "
+        f"steps; slot {target}'s request {t_rec['faults_detected']} "
+        f"detected, the others 0; localizer hit slots {hit_slots}, "
+        f"unattributed {cd['faults_unattributed']} (steps launched after "
+        f"the last request finished), residual steps "
+        f"{cd['residual_steps']}; tokens == clean: {same}")
+    if not (ok and same):
+        fail(f"driver decode drill: {by_slot} counters {cd} tokens {same}")
+    res["drill"] = {"counters": cd, "target": t_rec, "hit_slots": hit_slots}
+
+    # -- phase 7b's one-column corruption, repaired by the controller's audit --
+    clone = lambda t: ({k: clone(v) for k, v in t.items()}
+                       if isinstance(t, dict) else t.clone())
+    bits = lambda t: t.contiguous().view(torch.int16)
+    sp = clone(params)
+    d = ServingDriver(sp, cfg, fused, slots=SLOTS, max_len=MAX_LEN,
+                      audit_every=1, restore_fn=lambda: params,
+                      device=DEVICE)
+    try:
+        first = [d.submit(p, max_new_tokens=8) for p in drill_prompts[:4]]
+        t0 = time.monotonic()
+        while d.tokens_generated(first[0].rid) < 2:
+            if time.monotonic() - t0 > 300:
+                fail("the audit drill made no progress")
+            time.sleep(0.01)
+        with d.paused():
+            what = corrupt_one_column(weight_leaf(d.params, AUDIT_ENTRY),
+                                      torch.Generator().manual_seed(SEED + 7))
+            later = [d.submit(p, max_new_tokens=8)
+                     for p in drill_prompts[4:]]
+        rep = d.drain(timeout=900)
+    finally:
+        d.close()
+    c = rep["counters"]
+    vs = first + later
+    verdicts = sorted({v for r in rep["requests"] for v in r["audit_verdicts"]})
+    same = [d.tokens_for(v.rid) for v in vs] == clean
+    leaf_ok = torch.equal(bits(weight_leaf(d.params, AUDIT_ENTRY)),
+                          bits(weight_leaf(params, AUDIT_ENTRY)))
+    log(f"  audit drill ({what}, corrupted between two steps, 4 requests "
+        f"submitted meanwhile): audits {c['weight_audits']}, repairs "
+        f"{c['weight_repairs']}, restores {c['weight_restores']}, verdicts "
+        f"{verdicts}, repair ms {[round(r * 1e3, 2) for r in d.stats.repair_s]}; "
+        f"leaf bitwise clean {leaf_ok}; {rep['completed']} completed, "
+        f"tokens == clean: {same}")
+    if not (c["weight_repairs"] == 1 and c["weight_restores"] == 0
+            and "repaired" in verdicts and leaf_ok and same
+            and all(v.accepted for v in later) and rep["completed"] == 8
+            and not c["faults_detected"]):
+        fail(f"driver audit drill: counters {c}, verdicts {verdicts}, leaf "
+             f"{leaf_ok}, tokens {same}")
+    res["audit"] = {"what": what, "counters": c, "verdicts": verdicts,
+                    "repair_ms": [r * 1e3 for r in d.stats.repair_s]}
+    del sp
+
+    # -- the driver against the synchronous session, in turns --------------------
+    times = {k: {"step_ms": [], "ttft_ms": []} for k in ("session", "driver")}
+    for rnd in range(3):
+        for k in (("session", "driver") if rnd % 2 == 0
+                  else ("driver", "session")):
+            if k == "session":
+                sess, _, rp, _ = serve(params, cfg, fused, prompts, GEN)
+                dlog = sess.stats.decode_log
+            else:
+                dd, _, rp = drive(params, cfg, fused, prompts, GEN)
+                dlog = dd.stats.decode_log
+            times[k]["step_ms"].append(step_period_ms(dlog))
+            times[k]["ttft_ms"].append(rp["ttft_p50_s"] * 1e3)
+    med = {k: {m: statistics.median(v[m]) for m in v} for k, v in times.items()}
+    for k, v in times.items():
+        log(f"  {k}: decode step period ms {[round(t, 3) for t in v['step_ms']]}, "
+            f"TTFT p50 ms {[round(t, 2) for t in v['ttft_ms']]}")
+    log(f"  driver / session: step period "
+        f"{med['driver']['step_ms'] / med['session']['step_ms']:.3f}, TTFT "
+        f"p50 {med['driver']['ttft_ms'] / med['session']['ttft_ms']:.3f}")
+    res["times"], res["medians"] = times, med
+    report["driver"] = res
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1661,19 +2178,25 @@ def main(argv=None) -> int:
     kernels += check_serving_kernels(gen, report)
 
     log("phase 4: the slice")
-    res = run_slice(report)
+    res, slice_ctx = run_slice(report)
     for k in kernels[:2]:
         k["launches"] = res["per_layer"]["launches"][k["name"]]
+        k["launches_from"] = "phase 4: one clean per_layer forward"
 
     log("phase 6: the serving slice")
-    serving = run_serving(report)
+    serving, serve_ctx = run_serving(report)
     # the detect kernel's count is the deferred main path's; the serving
     # abft_matmul row's is the per_layer path's (0 launches when deferred
     # and clean)
     kernels[2]["launches"] = serving["deferred"]["launches"][
         "abft_matmul_detect"]
+    kernels[2]["launches_from"] = "phase 6: the deferred session's forwards"
     kernels[3]["launches"] = serving["per_layer"]["launches"]
+    kernels[3]["launches_from"] = "phase 6: the per_layer session's forwards"
     run_campaign_phase(report)
+    run_calibrated_plan(report, slice_ctx)
+    del slice_ctx
+    run_driver_phase(report, serve_ctx)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"total {report['seconds']:.1f} s")
@@ -1683,8 +2206,9 @@ def main(argv=None) -> int:
         out.write_text(json.dumps(report, indent=2))
         log(f"details in {out}")
     print(nvidia_smi())
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_from", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kk[k] for k in keys}
                                   for kk in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import contextlib
 import contextvars
 import dataclasses
 import json
+import logging
 import math
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
@@ -29,7 +30,9 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from . import checksums as C
-from .policy import CostModel, OpShape, cost_model_doc, decide_rc_clc
+from .cost_model import cost_model_doc
+from .policy import (CostModel, OpShape, decide_rc_clc,
+                     profile_conv_detect_kernel, profile_matmul_kernel)
 from .protected import (WeightChecksums, matmul_raw, pick_chunk,
                         protect_matmul_output, protected_conv,
                         protected_matmul, weight_checksums_matmul)
@@ -754,22 +757,52 @@ def _site_entry(site: OpSite, w, cfg: ProtectConfig) -> PlanEntry:
 
 def build_plan(params, arch_cfg, cost_model: Optional[CostModel] = None,
                batch: int = 8, seq: int = DEFAULT_PLAN_SEQ,
+               profile_kernels: bool = False,
                calibrate_tau: bool = True,
                device: DeviceLike = None) -> ProtectionPlan:
     """Compile a model-level protection plan (the offline phase).
 
     `arch_cfg` is a CNNConfig, a transformer ModelConfig or a
-    ProtectionSpec. Per site it decides RC/ClC from the SS4.3 analytic cost
-    model (conv sites), calibrates the per-layer detection threshold
-    factor from the contraction depth, and - when `params` is given -
-    precomputes the weight checksums on `device` (the card unless the
-    caller asks for the CPU); stage sites are encoded per repeat slice and
-    stored stacked. `params=None` builds a policy-only plan. Profiling the
-    kernels and the measured roofline cost model are not ported yet."""
+    ProtectionSpec. Per site it decides RC/ClC from the SS4.3 cost model
+    (conv sites), calibrates the per-layer detection threshold factor from
+    the contraction depth, and - when `params` is given - precomputes the
+    weight checksums on `device` (the card unless the caller asks for the
+    CPU); stage sites are encoded per repeat slice and stored stacked.
+    `params=None` builds a policy-only plan.
+
+    `profile_kernels=True` runs the measured calibration pass
+    (policy.profile_*_kernel) on `device`: per layer shape it times the
+    plain route against the kernel route, both finished to the same
+    detection sums, and pins the winner (`use_fused_kernel` +
+    `kernel_tiles`) into the entry's config; the timings land in
+    `meta["kernel_profile"]`. Transformer GEMM sites profile too (rows =
+    batch*`seq`, in float32 as the JAX package profiles them); a matmul
+    site that picks the kernel gets its chunking snapped to the tiles.
+    Profiles are memoised per distinct (n, k, m) / conv (n, m, e) shape.
+
+    A measured cost model (`cost_model=MeasuredCostModel.from_host()`,
+    core.cost_model) prices every decision on this device's roofline:
+    * RC/ClC enablement in real seconds, on matmul sites too;
+    * detection chunking from `detect_chunk`;
+    * the profile_kernels candidates pruned to shapes near the ridge
+      (`should_profile`), each pruned site recording its skip reason;
+    * direct-path CNN sites get a per-entry `execution` membership:
+      compute-bound sites keep their immediate ladder ("per_layer"),
+      bandwidth-bound ones ride the deferred carry - ProtectedModel
+      (correction="deferred") honours the mix;
+    * every verdict persists in `meta["roofline"]`."""
     dev = resolve_device(device)
     spec = protection_spec(arch_cfg, batch=batch, seq=seq)
     base = spec.base
+    measured = hasattr(cost_model, "classify")     # MeasuredCostModel
+    # mixed execution membership only applies to direct-path model walks
+    # (the CNN family): stacked transformer sites merge their carries
+    # through the stage loop, which cannot mix report types
+    direct_family = spec.meta.get("family") == "cnn"
     entries: Dict[str, PlanEntry] = {}
+    kprof: Dict[str, dict] = {}
+    roofline: Dict[str, dict] = {}
+    prof_cache: Dict[tuple, Any] = {}
     for site in spec.sites:
         w = None
         if params is not None:
@@ -789,10 +822,97 @@ def build_plan(params, arch_cfg, cost_model: Optional[CostModel] = None,
         if site.op.kind == "conv" and site.shape is not None:
             rc, clc = decide_rc_clc(site.shape, cost_model)
             cfg = cfg.replace(rc_enabled=rc, clc_enabled=clc)
-        entries[site.path] = _site_entry(site, w, cfg)
+        cls = None
+        execution = None
+        if measured and site.shape is not None:
+            cls = cost_model.classify(site.shape)
+            if site.op.kind == "matmul":
+                # rung selection in real seconds for GEMM sites too
+                rc, clc = decide_rc_clc(site.shape, cost_model)
+                cfg = cfg.replace(rc_enabled=rc, clc_enabled=clc)
+            chunk = cost_model.detect_chunk(cfg.col_chunk)
+            cfg = cfg.replace(row_chunk=chunk, col_chunk=chunk)
+            if direct_family and not site.stack:
+                execution = ("per_layer" if cls["bound"] == "compute"
+                             else "deferred")
+        if profile_kernels and cfg.enabled and site.shape is not None:
+            s = site.shape
+            if measured and not cost_model.should_profile(s):
+                kprof[site.path] = {
+                    "use_fused": False, "tiles": None, "plain_us": None,
+                    "fused_us": None,
+                    "skipped": "roofline prune: intensity "
+                               f"{cls['intensity']:.2f} outside the "
+                               "profile window around ridge "
+                               f"{cls['ridge']:.2f}"}
+                entries[site.path] = _compile_entry(site, w, cfg, execution)
+                roofline[site.path] = _roofline_doc(cls, execution,
+                                                    kprof[site.path])
+                continue
+            if site.op.kind == "conv":
+                ckey = ("conv", s.n, s.m, s.h)
+                prof = prof_cache.get(ckey)
+                if prof is None:
+                    prof = profile_conv_detect_kernel((s.n, s.m, s.h, s.h),
+                                                      device=dev)
+                    prof_cache[ckey] = prof
+            else:
+                m = w.shape[-1] if w is not None else s.m
+                ckey = ("mm", s.n, s.ch, m)
+                prof = prof_cache.get(ckey)
+                if prof is None:
+                    prof = profile_matmul_kernel(s.n, s.ch, m, device=dev)
+                    prof_cache[ckey] = prof
+            cfg = cfg.replace(use_fused_kernel=prof.use_fused,
+                              kernel_tiles=prof.tiles)
+            if (prof.use_fused and prof.tiles
+                    and site.op.kind == "matmul"):
+                # snap chunking to the kernel tiles (the JAX package's
+                # single-launch detect path needs chunk == tile)
+                cfg = cfg.replace(row_chunk=prof.tiles[0],
+                                  col_chunk=prof.tiles[1])
+            kprof[site.path] = prof.doc()
+        entries[site.path] = _compile_entry(site, w, cfg, execution)
+        if cls is not None:
+            roofline[site.path] = _roofline_doc(cls, execution,
+                                                kprof.get(site.path))
     meta = dict(spec.meta)
     meta["cost_model"] = cost_model_doc(cost_model or CostModel())
+    if measured:
+        meta["roofline"] = roofline
+    if profile_kernels:
+        meta["kernel_profile"] = kprof
+        if not kprof and entries:
+            # only shapeless sites in this spec - say so instead of
+            # letting the caller believe the calibration pass ran
+            logging.getLogger("repro_torch.plan").warning(
+                "build_plan(profile_kernels=True): no profilable sites "
+                "in this spec (every site lacks an OpShape); plan built "
+                "without kernel pinning")
     return ProtectionPlan(entries=entries, meta=meta)
+
+
+def _compile_entry(site: OpSite, w, cfg: ProtectConfig,
+                   execution: Optional[str]) -> PlanEntry:
+    e = _site_entry(site, w, cfg)
+    e.execution = execution
+    return e
+
+
+def _roofline_doc(cls: dict, execution: Optional[str],
+                  prof_doc: Optional[dict]) -> dict:
+    """One site's persisted roofline verdict: the classification inputs,
+    the membership decision it produced, and - when the site was profiled
+    - the measured plain/fused timings next to the prediction."""
+    doc = {"intensity": cls["intensity"], "ridge": cls["ridge"],
+           "bound": cls["bound"], "predicted_us": dict(cls["predicted_us"]),
+           "execution": execution}
+    if prof_doc is not None:
+        doc["measured_us"] = {"plain": prof_doc.get("plain_us"),
+                              "fused": prof_doc.get("fused_us")}
+        if prof_doc.get("skipped"):
+            doc["profile_skipped"] = prof_doc["skipped"]
+    return doc
 
 
 def force_fused_matmul(plan: ProtectionPlan,

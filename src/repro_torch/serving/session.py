@@ -23,12 +23,18 @@ divergence from the plan's persisted checksums climbs runtime.ft's ladder
 - in-place repair from the plan's locator sums, then `restore_fn`, then
 WeightDivergenceError - before any forward of that step runs.
 
+Each decode step has a device half (`_step_fn`: the forward, its verdict,
+the next tokens left on the device) and a host half (`_host_decode`, then
+`_apply_decode_outputs`: the token copy, emission, attribution and
+eviction). The session runs them back to back; serving.driver's
+ServingDriver runs the host half of step N after launching step N+1.
+
 Not ported yet, and refused: `mesh=` (ROADMAP item 1.12).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -118,16 +124,19 @@ class ProtectedSession:
 
     # -- the device pieces ---------------------------------------------------
     def _step_fn(self, tokens, positions) -> Dict:
-        """One decode step over all slots: next tokens, the per-slot hit
-        vector of the localizer, and the (detected, corrected_by,
-        residual) verdict, all on the host."""
+        """Device half of one decode step over all slots: the next tokens
+        (left on the device, so a pipelined caller can feed them to the
+        next step as they are), the caches, the localizer's per-slot hit
+        vector (on the device; None when nothing was detected) and the
+        (detected, corrected_by, residual) verdict as host ints (the
+        deferred workflow reads its flags inside the forward)."""
+        hit = None
         with torch.no_grad(), fp32_ieee():
             if self.correction == "deferred":
                 (logits, caches), rep, (logits_d, _) = self._decode_pm(
                     self.params, tokens, self._caches, positions,
                     correction="deferred", with_detect_out=True)
                 fr = as_fault_report(rep)
-                hit = np.zeros((logits.shape[0],), np.int64)
                 if int(fr.detected):
                     # the corrective rerun ran: only rows the ladder
                     # touched move, so the rows that differ localize the
@@ -138,24 +147,31 @@ class ProtectedSession:
                     diff = torch.amax(torch.abs(l32 - d32), dim=-1)
                     hit = (diff > self.slot_tol
                            * (torch.amax(torch.abs(d32)) + 1.0)
-                           ).to(torch.int64).cpu().numpy()
+                           ).to(torch.int64)
             else:
                 (logits, caches), rep = self._decode_pm(
                     self.params, tokens, self._caches, positions,
                     correction=self.correction)
                 fr = as_fault_report(rep)
-                hit = np.zeros((logits.shape[0],), np.int64)
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            nxt = torch.argmax(logits, dim=-1)
         return {"next": nxt, "caches": caches, "hit": hit,
                 "stats": _host_ints(fr.detected, fr.corrected_by,
                                     fr.residual)}
+
+    def _host_decode(self, out: Dict) -> Tuple[np.ndarray, np.ndarray]:
+        """Host half of one decode step's outputs: the next tokens and the
+        hit vector as host arrays (the token copy waits for the device)."""
+        nxt = out["next"].cpu().numpy()
+        hit = (np.zeros((nxt.shape[0],), np.int64) if out["hit"] is None
+               else out["hit"].cpu().numpy())
+        return nxt, hit
 
     def _prefill_fn(self, tokens, last: int) -> Dict:
         with torch.no_grad(), fp32_ieee():
             (li, caches), rep = self._prefill_pm(self.params, tokens, last,
                                                  correction=self.correction)
             fr = as_fault_report(rep)
-            nxt = torch.argmax(li, dim=-1).cpu().numpy()
+            nxt = torch.argmax(li, dim=-1)
         return {"next": nxt, "caches": caches,
                 "stats": _host_ints(fr.detected, fr.corrected_by,
                                     fr.residual)}
@@ -278,8 +294,8 @@ class ProtectedSession:
     def _prefill_into(self, slot: int, req) -> None:
         bucket, buf = self._prep_prefill(req)
         out = self._dispatch_prefill(slot, req, bucket, buf)
-        tok = self._apply_prefill_outputs(out["next"], out["stats"], slot,
-                                          req)
+        tok = self._apply_prefill_outputs(out["next"].cpu().numpy(),
+                                          out["stats"], slot, req)
         if tok is None:
             return
         self._h_tokens[slot, 0] = tok
@@ -314,14 +330,15 @@ class ProtectedSession:
 
         if self.scheduler.active:
             snap = self._snapshot_active()
+            launched = self._now()
             t0 = time.perf_counter()
             out = self._dispatch_decode(
                 torch.as_tensor(self._h_tokens, device=self.device))
-            self.stats.log_decode(time.perf_counter() - t0, out["hit"])
+            nxt, hit = self._host_decode(out)
+            self.stats.log_decode(time.perf_counter() - t0, hit, launched)
             for slot, _, _ in snap:
                 self._h_positions[slot] += 1
-            self._apply_decode_outputs(out["next"], out["hit"],
-                                       out["stats"], snap)
+            self._apply_decode_outputs(nxt, hit, out["stats"], snap)
         return self.scheduler.busy()
 
     def _snapshot_active(self):
@@ -331,10 +348,11 @@ class ProtectedSession:
                  int(self._h_positions[slot]) + 1)
                 for slot in self.scheduler.active_slots()]
 
-    def _dispatch_decode(self, tokens) -> Dict:
-        """One decode step over all slots; the session's caches become
-        the step's."""
-        out = self._step_fn(tokens, torch.as_tensor(self._h_positions))
+    def _dispatch_decode(self, tokens, positions=None) -> Dict:
+        """One decode step over all slots at `positions` (the slots' own
+        by default); the session's caches become the step's."""
+        pos = self._h_positions if positions is None else positions
+        out = self._step_fn(tokens, torch.as_tensor(pos))
         self._caches = out["caches"]
         self.stats.counters["decode_steps"] += 1
         return out

@@ -116,14 +116,17 @@ class ServingStats:
         self.repair_s: List[float] = []
         self.wall_s: float = 0.0
         # one entry per decode step, outside the report's schema: the
-        # host seconds of its dispatch (launch to the read of the next
-        # tokens, which waits for the device) and the slot localizer's
-        # per-slot hit vector
+        # host seconds of its dispatch (the session: launch to the read
+        # of the next tokens, which waits for the device; the async
+        # driver: launch to the return of the forward, whose deferred
+        # flag read waits for the device), the slot localizer's per-slot
+        # hit vector and the session-clock second it was launched at
         self.decode_log: List[dict] = []
 
-    def log_decode(self, dispatch_s: float, hit) -> None:
+    def log_decode(self, dispatch_s: float, hit, launched_at: float) -> None:
         self.decode_log.append({"dispatch_s": dispatch_s,
-                                "hit": [int(h) for h in hit]})
+                                "hit": [int(h) for h in hit],
+                                "launched_at": launched_at})
 
     def record(self, rid: int) -> RequestRecord:
         return self.records[rid]

@@ -652,3 +652,75 @@ def test_weight_repair_on_card_matches_cpu(cuda_device):
     assert torch.equal(leaves["cpu"].view(torch.int16),
                        leaves["cuda"].view(torch.int16))
     assert torch.equal(leaves["cuda"].view(torch.int16), wb.view(torch.int16))
+
+
+# the H100 SXM's datasheet corners: fp32 outside the tensor cores, HBM3
+H100_FP32_FLOPS, H100_HBM_BYTES = 67e12, 3.35e12
+
+
+def test_measure_peaks_on_card(cuda_device, tmp_path):
+    """The card's calibration is measured (never the CPU fallback), the
+    cache records the card's microbenchmark sizes, and neither peak
+    reads above 105% of the datasheet's."""
+    import json
+    from repro_torch.core.cost_model import measure_peaks
+    path = str(tmp_path / "roofline.json")
+    p = measure_peaks(cache_path=path, refresh=True, device=cuda_device)
+    assert p.source == "measured" and p.backend == "cuda"
+    assert 0 < p.peak_flops <= 1.05 * H100_FP32_FLOPS
+    assert 0 < p.hbm_bw <= 1.05 * H100_HBM_BYTES
+    doc = json.loads(open(path).read())
+    assert (doc["gemm_n"], doc["triad_elems"]) == (8192, 1 << 26)
+    assert measure_peaks(cache_path=path, device=cuda_device).source == \
+        "cache"
+
+
+def test_profile_functions_launch_their_kernels(cuda_device):
+    """Both profiles return finite times and time the kernel route: the
+    conv sums and abft_matmul launch counts rise."""
+    import math
+    before = TCR.LAUNCHES
+    cv = tcore.profile_conv_detect_kernel((8, 64, 56, 56),
+                                          device=cuda_device)
+    assert TCR.LAUNCHES > before
+    assert math.isfinite(cv.t_plain) and math.isfinite(cv.t_fused)
+    assert cv.use_fused == (cv.t_fused < cv.t_plain)
+    before = TAM.LAUNCHES
+    mm = tcore.profile_matmul_kernel(8, 512, 1000, device=cuda_device)
+    assert TAM.LAUNCHES > before
+    assert math.isfinite(mm.t_plain) and math.isfinite(mm.t_fused)
+    assert mm.use_fused == (mm.t_fused < mm.t_plain)
+
+
+def test_driver_serves_on_card(cuda_device):
+    """The async driver serves two requests on the card through the
+    detect kernel, one host read per forward, with the session's tokens."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession, ServingDriver
+    cfg = TCF.get("smollm-360m-smoke").replace(dtype="bfloat16")
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=2, seq=32, device=cuda_device))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (6, 11)]
+    TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+    d = ServingDriver(params, cfg, plan, slots=2, max_len=32,
+                      device=cuda_device)
+    try:
+        rids = [d.submit(p, max_new_tokens=5).rid for p in prompts]
+        report = d.drain(timeout=300)
+    finally:
+        d.close()
+    c = report["counters"]
+    forwards = c["prefills"] + c["decode_steps"]
+    assert report["completed"] == 2 and c["faults_detected"] == 0
+    assert TAM.DETECT_LAUNCHES == 15 * forwards
+    assert TW.HOST_READS == forwards
+    sess = ProtectedSession(params, cfg, plan, slots=2, max_len=32,
+                            device=cuda_device)
+    srids = [sess.submit(p, max_new_tokens=5) for p in prompts]
+    sess.run()
+    assert [d.tokens_for(r) for r in rids] == \
+        [sess.tokens_for(r) for r in srids]
