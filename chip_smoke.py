@@ -56,7 +56,7 @@ Phases, each fatal on failure:
      a teacher-forced check against the unprotected forward (every
      served token's reference logit within 0.1 of the reference's top);
      median decode-step ms and TTFT p50 of the unprotected session and
-     the protected one with the kernels off and on, three rounds in
+     the protected one with the kernels off and on, two rounds in
      turns, and a torch.profiler trace of one decode step of each;
   7. serving drills: +1e4 at one logit of slot 3 at every decode step
      (the tied head) and +1e3 at one element of a stage's wq in every
@@ -69,7 +69,7 @@ Phases, each fatal on failure:
      tokens equal to the clean run's; the audit's and the repair's ms;
   8. the campaign on the card: matmul and conv, scheme full, every
      registered fault arm, 1000 trials per cell (the paper's grid), and
-     every layer x scheme x arm at 200: every gate of
+     every layer x scheme x arm at 100: every gate of
      repro_torch.campaign.run.check, deferred == full per arm, and one
      cell per layer (64 trials per arm) against the port's own CPU run
      (no detected or residual mismatch; corrected_by may differ only
@@ -96,7 +96,29 @@ Phases, each fatal on failure:
      submit/drain, attributed to slot 3's request only; phase 7b's
      one-column corruption repaired in place by the controller's audit
      while requests are admitted; the driver and the session timed in
-     turns, three rounds (decode step period, TTFT p50).
+     turns, two rounds (decode step period, TTFT p50);
+  11. training: (a) abft_matmul_vjp with the kernel pinned at 2048 rows
+     (batch 8 x seq 256) and the five GEMM shapes of phase 3b, in bf16 and
+     f32: O, dD and dW against autograd of the plain product (one bf16
+     ulp plus the fp32 summation noise; fp32 rtol 1e-5), 3 abft_matmul
+     launches per call (1 with
+     protect_backward off), clean reports, a registry burst in dW's and
+     in dD's output (fp32: detected, corrected with residual 0, the
+     gradients back within tolerance; bf16: verdicts recorded, the
+     reference's bf16 thresholds do not promise them, ROADMAP 3.5), and
+     the device ms of the backward's two launches, the D^T copy,
+     torch.matmul and the plain version beside the bound; (b) the train step on SmolLM-360M at full width
+     and depth (bf16 params, fp32 AdamW, batch 8 x 256 in 2 microbatches,
+     warmup 1, lr 1e-3) over three cycled batches for 12 steps: every
+     report clean, the loss falling, one step bitwise its abft=False
+     twin, no kernel launched (the plain route, as in the JAX package);
+     step ms, host reads, peak memory and a profile of one step; (c) the
+     training driver (launch.train.train) at full width and 4 layers: a
+     restart from the step-3 checkpoint bitwise the uninterrupted run
+     (bf16 leaves through '<V2' files), a flipped byte refused by
+     restore, and one element of the head's output corrupted (+1e4, as in
+     phase 7) in one step corrected and counted by StepRunner, the loss
+     within rtol 1e-4.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -108,8 +130,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -129,8 +153,15 @@ SERVE_ARCH = "smollm-360m"
 SLOTS, MAX_LEN = 8, 256
 N_REQ, GEN, PROMPT_LENS = 16, 32, (16, 128)
 # trials per cell of the campaign's whole grid (3 layers x 5 schemes x
-# every arm); the paper grid runs 1000
-GRID_TRIALS = 200
+# every arm; 100 leaves the training phase room in the call's time); the
+# paper grid runs 1000
+GRID_TRIALS = 100
+# rounds in turns of phase 6's three timed sessions and phase 10's driver
+# against the session, and samples per forward in phase 5b's turns: cut
+# from 3 and 5 so that the run with phase 11 stays within its time on a
+# card whose host is slow (PERF.md §6)
+TIMED_ROUNDS = 2
+FAULTED_REPS = 3
 # card vs CPU, the campaign's 64 trials per arm and layer: the share of
 # trials whose corrected_by may differ (which rung first verifies a fix
 # hangs on the order of a sum, ROADMAP 3.4); 9 of 1,728 were seen
@@ -148,6 +179,11 @@ SERVE_SITES = (("wq/wo", 960, 960, False, 64), ("wk/wv", 960, 320, False, 64),
 # prefill buckets; all are checked, the first and last also timed
 SERVE_ROWS = (SLOTS, 16, 32, 64, 128)
 TIMED_ROWS = (SLOTS, 128)
+# the training slice: SmolLM-360M at full width and depth, bf16 params and
+# fp32 AdamW state, batch 8 x seq 256 in two microbatches
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 12, 1e-3
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ   # rows of a training GEMM (11a)
+DRIVER_LAYERS = 4                      # depth of the driver's runs (11c)
 
 
 def log(*a):
@@ -1155,7 +1191,7 @@ def run_erroneous(params, x, cfg, fused, logits, scale, unprot,
                 t = time_turns({"unprotected": unprot,
                                 "clean": lambda: fwd(),
                                 "faulted": lambda i=i: fwd(i)},
-                               reps=5, warmup=1)
+                               reps=FAULTED_REPS, warmup=1)
                 faulted.append(statistics.median(t["faulted"]))
                 unp += t["unprotected"]
                 clean += t["clean"]
@@ -1318,11 +1354,11 @@ def run_serving(report):
         fail(f"a served token's reference logit is {worst:.4g} below the top")
     res["teacher_forced"] = {"max_logit_gap": gap, "max_margin": worst}
 
-    # -- timings: three sessions in turns, three rounds ----------------------
+    # -- timings: three sessions in turns, TIMED_ROUNDS rounds ---------------
     sessions = {"unprotected": (ucfg, None), "kernels_off": (cfg, plan),
                 "kernels_on": (cfg, fused)}
     times = {k: {"decode_ms": [], "ttft_ms": []} for k in sessions}
-    for rnd in range(3):
+    for rnd in range(TIMED_ROUNDS):
         keys = list(sessions)
         for k in keys[rnd:] + keys[:rnd]:
             kcfg, kplan = sessions[k]
@@ -2020,7 +2056,7 @@ def run_driver_phase(report, serve_ctx) -> dict:
 
     # -- the driver against the synchronous session, in turns --------------------
     times = {k: {"step_ms": [], "ttft_ms": []} for k in ("session", "driver")}
-    for rnd in range(3):
+    for rnd in range(TIMED_ROUNDS):
         for k in (("session", "driver") if rnd % 2 == 0
                   else ("driver", "session")):
             if k == "session":
@@ -2041,6 +2077,436 @@ def run_driver_phase(report, serve_ctx) -> dict:
     res["times"], res["medians"] = times, med
     report["driver"] = res
     return res
+
+
+# --------------------------------------------------------------------------
+# phase 11: training
+# --------------------------------------------------------------------------
+
+def grads_within(x, ref, dtype, absdot, k: int) -> bool:
+    """A product of the kernel route (O, dD or dW) against autograd of the
+    plain product. bf16: one bf16 ulp of the result plus the fp32
+    summation noise of the K-term dot products on either side, 2^-21
+    sqrt(K) |A| @ |B| (Higham and Mary's probabilistic bound, 4 sqrt(K) u
+    per side): two fp32 sums that differ by reassociation, each rounded
+    once, where a cancelled element's noise exceeds a relative ulp. fp32:
+    rtol 1e-5 with an atol of 1e-5 of the scale."""
+    import torch
+    if dtype == torch.bfloat16:
+        tol = ref.float().abs() * 2.0 ** -7 + 2.0 ** -21 * k ** 0.5 * absdot
+        return bool(((x.float() - ref.float()).abs() <= tol).all())
+    return torch.allclose(x, ref, rtol=1e-5,
+                          atol=1e-5 * float(ref.abs().max()))
+
+
+def check_training_gemms(report) -> dict:
+    """Phase 11a: abft_matmul_vjp at SmolLM-360M's training GEMM shapes
+    (TRAIN_ROWS rows, the five distinct (K, M) of SERVE_SITES) in bf16 and
+    f32 with the kernel pinned: O, dD and dW against autograd of
+    matmul_raw; 3 abft_matmul launches per call (1 with protect_backward
+    off); clean reports; a registry burst in dW's and in dD's output,
+    in fp32 detected, corrected with residual 0 and the gradients back
+    within the clean tolerance plus the fix's rounding (in bf16 the
+    verdicts are recorded: ROADMAP 3.5); and per shape the device ms of
+    the backward's two kernel launches, the D^T copy, torch.matmul and
+    the plain version for each product, beside the bound."""
+    import torch
+    from repro_torch import fp32_ieee
+    from repro_torch.core import (DEFAULT_CONFIG, abft_matmul_vjp,
+                                  plan_scope)
+    from repro_torch.core import injection as inj
+    from repro_torch.core.protected import matmul_raw, pick_chunk
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import abft_matmul_ref
+
+    n = TRAIN_ROWS
+    cfg = DEFAULT_CONFIG.replace(use_fused_kernel=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    model = inj.FAULT_MODELS["burst"]
+    cpu_gen = torch.Generator().manual_seed(SEED + 11)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = 2 if dtype == torch.bfloat16 else 4
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        for label, k, m, transposed, _ in SERVE_SITES:
+            what = f"{label} ({n}x{k})@({k}x{m}) {str(dtype)[6:]}"
+            d = torch.randn((n, k), generator=gen, device=DEVICE).to(dtype)
+            store = (torch.randn((m, k) if transposed else (k, m),
+                                 generator=gen, device=DEVICE)
+                     * k ** -0.5).to(dtype)
+            view = (lambda t: t.T) if transposed else (lambda t: t)
+            g = torch.randn((n, m), generator=gen, device=DEVICE).to(dtype)
+
+            def run(fn, hook=None):
+                a = d.clone().requires_grad_(True)
+                b = store.clone().requires_grad_(True)
+                scope = inj.fault_scope(*hook) if hook else \
+                    contextlib.nullcontext()
+                with fp32_ieee(), plan_scope(), scope:
+                    o = fn(a, view(b))
+                with fp32_ieee():
+                    da, db = torch.autograd.grad(o, (a, b), g)
+                torch.cuda.synchronize()
+                return o.detach(), da, (db.T if transposed else db)
+
+            ref = run(matmul_raw)
+            # |A| @ |B| of each product (O, dD, dW), and its contraction
+            da, sa, ga = d.float().abs(), view(store).float().abs(), \
+                g.float().abs()
+            absdot = (da @ sa, ga @ sa.T, da.T @ ga)
+            ks = (k, m, n)
+            del da, sa, ga
+            row = {"site": label, "dtype": str(dtype)[6:], "shape": [n, k, m],
+                   "w_transposed": transposed}
+            for protect, want in ((True, 3), (False, 1)):
+                reports = []
+                AM.LAUNCHES = 0
+                got = run(lambda a, b: abft_matmul_vjp(
+                    a, b, cfg.replace(protect_backward=protect), reports))
+                if AM.LAUNCHES != want:
+                    fail(f"abft_matmul_vjp {what} protect_backward="
+                         f"{protect}: {AM.LAUNCHES} abft_matmul launches, "
+                         f"want {want}")
+                v = [tuple(int(x) for x in r) for r in reports]
+                if v != [(0, 0, 0)] * (2 if protect else 0):
+                    fail(f"abft_matmul_vjp {what}: clean reports {v}")
+                for x, y, a_, k_, nm in zip(got, ref, absdot, ks,
+                                            ("O", "dD", "dW")):
+                    if not grads_within(x, y, dtype, a_, k_):
+                        fail(f"abft_matmul_vjp {what} protect_backward="
+                             f"{protect}: {nm} max |err| {max_err(x, y):.3g}")
+                if protect:
+                    row["max_abs_err"] = {nm: max_err(x, y) for x, y, nm in
+                                          zip(got, ref, ("O", "dD", "dW"))}
+            # a registry burst in each backward product's output. In fp32:
+            # detected, corrected, residual 0, the gradient back within the
+            # clean tolerance plus the located fix's rounding, 8 eps32 of the
+            # largest corrupted value (ROADMAP 3.4). In bf16 the verdicts are
+            # recorded, not gated: the reference's bf16 thresholds let bursts
+            # through or accept wrong fixes (ROADMAP 3.5)
+            drills = {}
+            for product, (po, pm) in (("dW", (k, m)), ("dD", (n, k))):
+                sp = model.plan(cpu_gen, po, pm, 1, 100)
+                worst = []
+
+                def hook(o, sp=sp, worst=worst):
+                    bad = inj.inject(o, sp.to(o.device), model)
+                    worst.append(float(bad.float().abs().max()))
+                    return bad
+
+                reports = []
+                AM.LAUNCHES = 0
+                got = run(lambda a, b: abft_matmul_vjp(a, b, cfg, reports),
+                          hook=(product, hook))
+                v = [tuple(int(x) for x in r) for r in reports]
+                hit = v[0 if product == "dD" else 1]
+                other = v[1 if product == "dD" else 0]
+                errs = {nm: max_err(x, y) for x, y, nm in
+                        zip(got, ref, ("O", "dD", "dW"))}
+                scale = {nm: float(y.abs().max()) for y, nm in
+                         zip(ref, ("O", "dD", "dW"))}
+                fix = 8 * 2.0 ** -23 * worst[0]
+                ok = all(torch.allclose(x.float(), y.float(), rtol=1e-5,
+                                        atol=1e-5 * scale[nm] + fix)
+                         for x, y, nm in zip(got, ref, ("O", "dD", "dW")))
+                del got
+                drills[product] = {"axis": int(sp.axis),
+                                   "elements": int(sp.nelem),
+                                   "scale": float(sp.scale),
+                                   "verdict": hit, "other": other,
+                                   "launches": AM.LAUNCHES,
+                                   "max_abs_err": errs,
+                                   "err_over_scale": errs[product] /
+                                   scale[product],
+                                   "gated": dtype == torch.float32,
+                                   "within": ok}
+                if AM.LAUNCHES != 3 or other != (0, 0, 0):
+                    fail(f"abft_matmul_vjp {what}: burst in {product}: "
+                         f"launches {AM.LAUNCHES}, the other product's "
+                         f"verdict {other}")
+                if dtype == torch.float32 and not (
+                        hit[0] == 1 and hit[1] != 0 and hit[2] == 0 and ok):
+                    fail(f"abft_matmul_vjp {what}: burst in {product} "
+                         f"(axis {int(sp.axis)}, {int(sp.nelem)} elements, "
+                         f"scale {float(sp.scale):g}): verdict {hit}, errors "
+                         f"{errs}, fix allowance {fix:.3g}")
+            row["bursts"] = drills
+            del absdot, ref
+            # device times of the backward's products, inputs cold in L2:
+            # dD reads W^T in place, dW a copy of D^T made beforehand
+            with torch.no_grad(), fp32_ieee():
+                args = copies([d, store, g, d.T.contiguous()])
+                tile = lambda r, c: (ops._tile(pick_chunk(r, 1024), 256),
+                                     ops._tile(pick_chunk(c, 1024), 256))
+                (bmd, bnd), (bmw, bnw) = tile(n, k), tile(k, m)
+                t = {
+                    "dD": time_device(lambda a, b, c, e: AM.abft_matmul(
+                        c, view(b).T, bmd, bnd), args),
+                    "dW": time_device(lambda a, b, c, e: AM.abft_matmul(
+                        e, c, bmw, bnw), args),
+                    "dT_copy": time_device(
+                        lambda a, b, c, e: a.T.contiguous(), args),
+                    "dD_plain": time_device(lambda a, b, c, e: abft_matmul_ref(
+                        c, view(b).T, bmd, bnd), args),
+                    "dW_plain": time_device(lambda a, b, c, e: abft_matmul_ref(
+                        e, c, bmw, bnw), args),
+                    "dD_torch_matmul": time_device(
+                        lambda a, b, c, e: torch.matmul(c, view(b).T), args),
+                    "dW_torch_matmul": time_device(
+                        lambda a, b, c, e: torch.matmul(a.T, c), args)}
+                del args
+            flops = 2.0 * n * k * m
+            part = lambda r, c, bm, bn: 4.0 * (-(-r // bm) * c + r * -(-c // bn)
+                                               + -(-r // bm) * -(-c // bn))
+            t["dD_bound"], t["dD_bound_by"] = bound_ms(
+                elt * (n * m + m * k + n * k) + part(n, k, bmd, bnd), flops,
+                peak)
+            t["dW_bound"], t["dW_bound_by"] = bound_ms(
+                elt * (k * n + n * m + k * m) + part(k, m, bmw, bnw), flops,
+                peak)
+            t["dT_copy_bound"], _ = bound_ms(2.0 * elt * n * k, 0.0)
+            row["ms"] = t
+            rows.append(row)
+            log(f"  {what}: 3 launches, clean; O/dD/dW max |err| "
+                + "/".join(f"{row['max_abs_err'][x]:.3g}"
+                           for x in ("O", "dD", "dW"))
+                + "; bursts " + ", ".join(
+                    f"{p} {r['verdict']} (axis {r['axis']}, {r['elements']} "
+                    f"el. x{r['scale']:g}; |err|/scale "
+                    f"{r['err_over_scale']:.3g}"
+                    + ("" if r["gated"] else ", not gated") + ")"
+                    for p, r in drills.items()))
+            log(f"    backward ms: dD kernel {t['dD']:.4f} (torch.matmul "
+                f"{t['dD_torch_matmul']:.4f}, plain {t['dD_plain']:.4f}, "
+                f"bound {t['dD_bound']:.4f} {t['dD_bound_by']}); D^T copy "
+                f"{t['dT_copy']:.4f} (bound {t['dT_copy_bound']:.4f}); dW "
+                f"kernel {t['dW']:.4f} (torch.matmul "
+                f"{t['dW_torch_matmul']:.4f}, plain {t['dW_plain']:.4f}, "
+                f"bound {t['dW_bound']:.4f} {t['dW_bound_by']})")
+    report["training_gemms"] = rows
+    return rows
+
+
+def run_training(report) -> dict:
+    """Phase 11b: the train step (launch.steps.make_train_step) at
+    SmolLM-360M's full width and depth, bf16 params and fp32 AdamW state,
+    batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB microbatches, warmup 1, lr
+    TRAIN_LR, over three cycled host_batch batches for TRAIN_STEPS steps:
+    every report clean and every loss finite, the last loss below the
+    first, one step bitwise its abft=False twin from the same state (and
+    its own rerun), no kernel launched (the step runs the plain route, as
+    the JAX package's does); per step ms, host reads, peak memory, and a
+    profile of one step."""
+    import torch
+    from repro_torch import configs
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.core import workflow
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    from repro_torch.optim import OptConfig
+
+    log("phase 11b: the train step at full width and depth")
+    cfg = configs.get(SERVE_ARCH)
+    opt = OptConfig(lr=TRAIN_LR)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = S.init_train_state(torch.Generator().manual_seed(SEED), cfg, opt,
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for _, p in
+                   tree_flatten_with_path(state["params"]))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    batches = []
+    for i in range(3):
+        tk, lb = host_batch(dcfg, i)
+        batches.append({"tokens": tk.to(DEVICE), "labels": lb.to(DEVICE)})
+    step = S.make_train_step(cfg, opt, microbatches=TRAIN_MB, warmup=1)
+    log(f"  {SERVE_ARCH}: {n_params / 1e6:.1f} M params bf16, AdamW state "
+        f"fp32; batch {TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_MB} microbatches;"
+        f" init {init_s:.1f} s")
+    losses, ms, reads, launches = [], [], [], 0
+    mid = None
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = 0
+    for i in range(TRAIN_STEPS):
+        if i == 2:
+            mid = state
+        workflow.HOST_READS = 0
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i % 3])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(workflow.HOST_READS)
+        loss = float(m["loss"])
+        v = tuple(int(x) for x in m["report"])
+        losses.append(loss)
+        if v != (0, 0, 0) or not math.isfinite(loss):
+            fail(f"train step {i}: report {v}, loss {loss}")
+    launches = AM.LAUNCHES + AM.DETECT_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    log("  losses " + " ".join(f"{x:.4f}" for x in losses))
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if launches:
+        fail(f"{launches} kernel launches in the train steps, want 0 (the "
+             "step runs the plain protected route)")
+    # -- one protected step bitwise its abft=False twin ---------------------
+    batch = batches[2]
+    twin = S.make_train_step(cfg.replace(abft=False), opt,
+                             microbatches=TRAIN_MB, warmup=1)
+    a, ma = step(mid, batch)
+    b, mb = twin(mid, batch)
+    c, mc = step(mid, batch)
+    torch.cuda.synchronize()
+    fa, fb, fc = (tree_flatten_with_path(x) for x in (a, b, c))
+    diff = [n for (n, x), (_, y) in zip(fa, fb) if not torch.equal(x, y)]
+    rerun = [n for (n, x), (_, y) in zip(fa, fc) if not torch.equal(x, y)]
+    same = (not diff and torch.equal(ma["loss"], mb["loss"])
+            and torch.equal(ma["gnorm"], mb["gnorm"]))
+    log(f"  step 2 from the same state: protected == abft=False bitwise: "
+        f"{same} (leaves differing: {diff[:4]}); rerun bitwise: "
+        f"{not rerun}")
+    if not same:
+        fail(f"the protected step differs from its abft=False twin in "
+             f"{diff} (rerun differs in {rerun}); loss {float(ma['loss'])} "
+             f"vs {float(mb['loss'])}")
+    del a, b, c, fa, fb, fc, mid
+    prof = profile_forward(lambda: step(state, batch))
+    steady = ms[1:]
+    res = {"params_m": n_params / 1e6, "init_s": init_s, "losses": losses,
+           "step_ms": ms, "median_step_ms": statistics.median(steady),
+           "host_reads_per_step": reads,
+           "peak_mem_gb": peak / 2 ** 30, "kernel_launches": launches,
+           "bitwise_twin": same, "profile": prof}
+    log(f"  median step {res['median_step_ms']:.1f} ms (steps 1-"
+        f"{TRAIN_STEPS - 1}; step 0 {ms[0]:.1f}); host reads per step "
+        f"{reads[1]}; peak memory {res['peak_mem_gb']:.2f} GiB; profile of "
+        f"one step: {prof['kernels']} device kernels, device busy "
+        f"{prof['device_ms']:.1f} of {prof['wall_ms']:.1f} ms, idle share "
+        f"{prof['idle_share']:.3f}")
+    for e in prof["top"][:6]:
+        log(f"    {e['ms']:.3f} ms  x{e['calls']}  {e['name'][:90]}")
+    report["training"] = res
+    return res
+
+
+def run_train_driver(report) -> dict:
+    """Phase 11c: repro_torch.launch.train.train on SmolLM-360M at full
+    width and DRIVER_LAYERS layers (a registry entry for the run), with
+    checkpoints under build/: 6 steps uninterrupted; 3 steps, then a fresh
+    train() that restores the step-3 checkpoint and runs to step 6,
+    bitwise the uninterrupted run (params and AdamW state, the bf16
+    leaves through their '<V2' files); one byte of a saved leaf flipped
+    makes restore raise IOError; one element of the tied head's output
+    corrupted in one step (fault_scope at "embed/table" inside an empty
+    plan_scope, which makes the paths live and changes nothing else):
+    corrected, counted by StepRunner, that step's loss within rtol 1e-4
+    of the clean run's."""
+    import shutil
+    import torch
+    from repro_torch import configs
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import archs
+    from repro_torch.core import injection as inj
+    from repro_torch.core import plan_scope
+    from repro_torch.launch.train import train
+
+    log("phase 11c: the training driver and its fault tolerance")
+    arch = f"{SERVE_ARCH}-{DRIVER_LAYERS}-layers"
+    archs.ARCH_BUILDERS[arch] = lambda: configs.get(SERVE_ARCH).replace(
+        num_layers=DRIVER_LAYERS)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, microbatches=TRAIN_MB,
+              lr=TRAIN_LR, ckpt_every=3, seed=SEED, device=DEVICE)
+    res = {}
+    try:
+        t0 = time.perf_counter()
+        full, hist, stats = train(arch, 6, ckpt_dir=str(root / "a"), **kw)
+        res["uninterrupted_s"] = time.perf_counter() - t0
+        _, h1, _ = train(arch, 3, ckpt_dir=str(root / "b"), **kw)
+        resumed, h2, _ = train(arch, 6, ckpt_dir=str(root / "b"), **kw)
+        fa, fb = tree_flatten_with_path(full), tree_flatten_with_path(resumed)
+        diff = [n for (n, x), (_, y) in zip(fa, fb)
+                if not (x.dtype == y.dtype and torch.equal(x, y))]
+        step3 = root / "b" / "step_00000003"
+        man = json.loads((step3 / "manifest.json").read_text())
+        bf16 = [n for n, e in man["leaves"].items() if e["dtype"] == "bfloat16"]
+        heads = {(step3 / man["leaves"][n]["file"]).read_bytes()[10:30]
+                 for n in bf16}
+        log(f"  restart: losses {' '.join(f'{x:.4f}' for x in hist)}; "
+            f"resumed {' '.join(f'{x:.4f}' for x in h1 + h2)}; final state "
+            f"bitwise: {not diff} ({len(fa)} leaves, {len(bf16)} bf16 leaves "
+            f"saved as {sorted(heads)})")
+        if diff or h1 + h2 != hist:
+            fail(f"restart from step 3 differs in {diff}; losses {hist} vs "
+                 f"{h1 + h2}")
+        if not bf16 or any(b"'<V2'" not in h for h in heads):
+            fail(f"bf16 leaves not saved as '<V2' files: {heads}")
+        # -- one byte flipped -------------------------------------------------
+        mgr = CheckpointManager(str(root / "b"))
+        victim = step3 / man["leaves"][bf16[0]]["file"]
+        raw = bytearray(victim.read_bytes())
+        raw[-7] ^= 0xFF
+        victim.write_bytes(bytes(raw))
+        try:
+            mgr.restore(3, full)
+        except IOError as e:
+            log(f"  one byte of {bf16[0]} flipped: restore refused ({e})")
+        else:
+            fail("a checkpoint with a flipped byte restored without error")
+        # -- a forward fault in one step ----------------------------------------
+        calls = {"n": 0}
+        fault_call = 3 * TRAIN_MB      # step 3's first microbatch
+
+        def hook(o):
+            calls["n"] += 1
+            if calls["n"] - 1 != fault_call:
+                return o
+            o = o.clone()
+            o[1, 7, 123] += 1e4           # phase 7's head drill
+            return o
+
+        with plan_scope(), inj.fault_scope("embed/table", hook):
+            _, hf, sf = train(arch, 6, **kw)
+        d_loss = abs(hf[3] - hist[3])
+        log(f"  one element of the head's output corrupted in step 3: "
+            f"StepRunner stats {sf}; loss {hf[3]:.6f} vs clean "
+            f"{hist[3]:.6f} (|diff| {d_loss:.3g})")
+        if not (sf["faults_detected"] == 1 and sf["faults_corrected"] == 1
+                and sf["retries"] == 0 and calls["n"] == 6 * TRAIN_MB
+                and d_loss <= 1e-4 * abs(hist[3])):
+            fail(f"forward fault in a train step: stats {sf}, hook calls "
+                 f"{calls['n']}, loss {hf[3]} vs {hist[3]}")
+        res.update({"losses": hist, "resumed_losses": h1 + h2,
+                    "bf16_leaves": len(bf16), "fault_stats": sf,
+                    "fault_loss": hf[3], "clean_loss": hist[3]})
+    finally:
+        archs.ARCH_BUILDERS.pop(arch, None)
+        shutil.rmtree(root, ignore_errors=True)
+    report["train_driver"] = res
+    return res
+
+
+def run_training_phase(report) -> dict:
+    """Phase 11: 11a, 11b and 11c, timed."""
+    log("phase 11: training")
+    t0 = time.perf_counter()
+    log("phase 11a: abft_matmul_vjp at the training GEMM shapes")
+    check_training_gemms(report)
+    run_training(report)
+    run_train_driver(report)
+    secs = time.perf_counter() - t0
+    log(f"  phase 11: {secs:.1f} s")
+    report["training_s"] = secs
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -2197,6 +2663,8 @@ def main(argv=None) -> int:
     run_calibrated_plan(report, slice_ctx)
     del slice_ctx
     run_driver_phase(report, serve_ctx)
+    del serve_ctx
+    run_training_phase(report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log(f"total {report['seconds']:.1f} s")

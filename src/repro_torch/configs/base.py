@@ -81,7 +81,8 @@ class ModelConfig:
     abft_col_chunk: int = 1024
     # kept field for field so configs compare across the packages; an
     # eager forward neither rematerialises nor scans, so neither has an
-    # effect here
+    # effect here, in training too (forward_train's backward keeps the
+    # forward's activations)
     remat: bool = True
     scan_stages: bool = True
 

@@ -24,9 +24,9 @@ from .plan import (W_VIEWS, OpSite, OpSpec, PlanEntry, PlanStaleError,
 from .policy import (CostModel, KernelProfile, OpShape, calibrate,
                      decide_rc_clc, profile_conv_detect_kernel,
                      profile_matmul_kernel)
-from .protected import (WeightChecksums, pick_chunk, protect_matmul_output,
-                        protected_conv, protected_matmul,
-                        weight_checksums_matmul)
+from .protected import (WeightChecksums, abft_matmul_vjp, pick_chunk,
+                        protect_matmul_output, protected_conv,
+                        protected_matmul, weight_checksums_matmul)
 from .types import (CHECKSUM_REFRESH, CLC, COC, DEFAULT_CONFIG, FC, NONE, RC,
                     RECOMPUTE, SCHEME_NAMES, W_REPAIR, DetectEvidence,
                     FaultReport, ModelReport, ProtectConfig, as_fault_report,
@@ -50,7 +50,8 @@ __all__ = [
     "stacked_weight_locators_matmul", "weight_leaf",
     "CostModel", "KernelProfile", "OpShape", "calibrate", "decide_rc_clc",
     "profile_conv_detect_kernel", "profile_matmul_kernel",
-    "WeightChecksums", "pick_chunk", "protect_matmul_output",
+    "WeightChecksums", "abft_matmul_vjp", "pick_chunk",
+    "protect_matmul_output",
     "protected_conv", "protected_matmul", "weight_checksums_matmul",
     "CHECKSUM_REFRESH", "CLC", "COC", "DEFAULT_CONFIG", "FC", "NONE", "RC",
     "RECOMPUTE", "SCHEME_NAMES", "W_REPAIR", "DetectEvidence", "FaultReport",

@@ -474,6 +474,73 @@ def protected_matmul(
 
 
 # --------------------------------------------------------------------------
+# backward protection (paper SS5.3)
+# --------------------------------------------------------------------------
+
+def _backward_product(a, b, cfg: T.ProtectConfig, hook):
+    """One protected product of the backward. A fault hook (registered at
+    the call site's path + "/dD" or "/dW" by injection.fault_scope when
+    the forward ran) corrupts the site's raw product, which then takes the
+    workflow as an injected output, as core.plan.protect_site does."""
+    if hook is None:
+        return protected_matmul(a, b, cfg=cfg)
+    from .plan import _site_product
+    o = hook(_site_product(a, b, cfg))
+    return protect_matmul_output(a, b, o, cfg=cfg)
+
+
+class _AbftMatmulVJP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, w, cfg, reports):
+        from .injection import site_fault
+        from .plan import current_path
+        o, _ = protected_matmul(d, w, cfg=cfg)
+        ctx.save_for_backward(d, w)
+        ctx.cfg, ctx.reports = cfg, reports
+        # the hooks are looked up here: the backward may run on autograd's
+        # device thread, where the caller's context is not set
+        ctx.hooks = (site_fault(current_path("dD")),
+                     site_fault(current_path("dW")))
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        """dW = D^T @ dO and dD = dO @ W^T, each protected with checksums
+        of the runtime operands (the paper's back-propagation extension:
+        checksums of grad-O play the role of the kernel checksums)."""
+        d, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        lead, k = d.shape[:-1], d.shape[-1]
+        d2 = d.reshape(-1, k)
+        g2 = g.reshape(-1, g.shape[-1])
+        # W^T is a view the kernel reads in place (its transposed-W layout)
+        wt = w.T.to(g2.dtype)
+        if cfg is not None and cfg.protect_backward:
+            dd2, rep_d = _backward_product(g2, wt, cfg, ctx.hooks[0])
+            # D^T is copied: the kernel reads D row-major only
+            dw, rep_w = _backward_product(d2.T.contiguous(), g2.to(d2.dtype),
+                                          cfg, ctx.hooks[1])
+            if ctx.reports is not None:
+                ctx.reports += [rep_d, rep_w]
+        else:
+            dd2 = matmul_raw(g2, wt)
+            dw = matmul_raw(d2.T, g2.to(d2.dtype))
+        return dd2.reshape(*lead, k).to(d.dtype), dw.to(w.dtype), None, None
+
+
+def abft_matmul_vjp(d: torch.Tensor, w: torch.Tensor,
+                    cfg: Optional[T.ProtectConfig],
+                    reports: Optional[list] = None) -> torch.Tensor:
+    """O = D @ W through protected_matmul, whose backward protects both
+    products: dD = dO W^T and dW = D^T dO each run the multischeme
+    workflow (`cfg.protect_backward`; plain products otherwise). With
+    `cfg.use_fused_kernel` on the card each of the three products is one
+    abft_matmul launch. The JAX package drops the backward's reports; a
+    `reports` list, when given, receives dD's then dW's."""
+    return _AbftMatmulVJP.apply(d, w, cfg, reports)
+
+
+# --------------------------------------------------------------------------
 # the protected convolution (the paper's native object)
 # --------------------------------------------------------------------------
 

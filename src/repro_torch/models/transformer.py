@@ -1,6 +1,7 @@
 """Decoder-LM assembler (twin of repro.models.transformer, the attention +
-dense-FFN slice): init, caches, the protected forward, prefill and decode,
-and the ProtectedModel apply_fns the serving session runs.
+dense-FFN slice): init, caches, the protected forward, the training
+forward (autograd through the protected route), prefill and decode, and
+the ProtectedModel apply_fns.
 
 Params are nested dicts of tensors in the JAX package's layouts. Stage
 params keep JAX's leading repeats axis; the `lax.scan` over stages becomes
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, fp32_ieee, resolve_device
+from .._tree import tree_map
 from ..core import (ModelReport, ProtectConfig, WeightChecksums,
                     ambient_mode, ambient_plan, as_fault_report,
                     clean_report, entry_overrides, merge_verdicts,
@@ -50,12 +52,6 @@ def abft_config(cfg) -> Optional[ProtectConfig]:
     return ProtectConfig(row_chunk=cfg.abft_row_chunk,
                          col_chunk=cfg.abft_col_chunk,
                          detect_only=cfg.abft_detect_only)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _stack_trees(trees):
@@ -131,6 +127,21 @@ def params_from_numpy(np_params, device: DeviceLike = None) -> Dict:
                                 .view(np.int16))
         return bits.view(torch.bfloat16).to(dev)
     return torch.as_tensor(np.array(arr), device=dev)
+
+
+def train_state_from_numpy(np_state, device: DeviceLike = None) -> Dict:
+    """Carry a train state of the JAX package (launch.steps'
+    {"params", "opt", "step"}, converted with np.asarray leaf by leaf)
+    across as the port's: params, the optimizer's tree (AdamW's
+    {"step", "m", "v"} or Adafactor's {"step", "v"}) and the step counter,
+    each leaf as params_from_numpy carries it (bf16 bit for bit), so both
+    packages start a step from the same state."""
+    missing = {"params", "opt", "step"} - set(np_state)
+    if missing:
+        raise KeyError(f"not a train state: missing {sorted(missing)}")
+    dev = resolve_device(device)
+    return {k: params_from_numpy(np_state[k], dev)
+            for k in ("params", "opt", "step")}
 
 
 # --------------------------------------------------------------------------
@@ -265,7 +276,7 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     if positions is None:
         positions = torch.arange(s, device=tokens.device)[None, :]   # (1, S)
     if caches is not None:
-        caches = _tree_map(torch.clone, caches)
+        caches = tree_map(torch.clone, caches)
 
     sections: Dict[str, Any] = {}
     if cfg.prefix_pattern:
@@ -279,10 +290,10 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
         stage_wck = _stage_wck_xs()
         srep = clean_report(mode)
         for r_i in range(reps):
-            sp = _tree_map(lambda t: t[r_i], params["stages"])
+            sp = tree_map(lambda t: t[r_i], params["stages"])
             wcks = {n: (c1[r_i], c2[r_i]) for n, (c1, c2) in stage_wck.items()}
             sc = None if caches is None else \
-                _tree_map(lambda t: t[r_i], caches["stages"])
+                tree_map(lambda t: t[r_i], caches["stages"])
             with path_scope("stages"), _stage_overrides(wcks):
                 x, r, _ = _apply_blocks(pattern, sp, x, cfg, abft,
                                         positions, sc, cache_pos)
@@ -335,9 +346,39 @@ def decode_step(params, tokens, caches, position, cfg):
     return logits, as_fault_report(rep), caches
 
 
+def forward_train(params, tokens, cfg):
+    """tokens: (B, S) -> (logits (B, S, V) fp32, FaultReport, aux), with
+    autograd through every op (the caller takes the gradients). The
+    report keeps the scalar FaultReport contract (step runners and the
+    microbatch loop merge it); use `train_apply` + core.ProtectedModel
+    for the sectioned / deferred workflow. aux is the JAX package's MoE
+    load-balancing loss, 0 here (no moe blocks are ported). `cfg.remat`
+    has no effect: an eager backward keeps the forward's activations."""
+    with fp32_ieee():
+        logits, rep, _ = _forward(params, tokens, cfg)
+    return (logits, as_fault_report(rep),
+            torch.zeros((), dtype=F32, device=logits.device))
+
+
 # --------------------------------------------------------------------------
 # ProtectedModel apply_fns (the model-agnostic protection surface)
 # --------------------------------------------------------------------------
+
+def train_apply(cfg):
+    """apply_fn for core.ProtectedModel: the full-sequence forward.
+
+        pm = ProtectedModel(train_apply(cfg), plan)   # plan: build_plan
+        (logits, aux), report = pm(params, tokens)
+        (logits, aux), report = pm(params, tokens, correction="deferred")
+
+    The deferred mode runs the whole forward detect-only and reruns it
+    with full correction only when something flagged (one host read)."""
+    def apply_fn(params, tokens):
+        logits, rep, _ = _forward(params, tokens, cfg)
+        return (logits, torch.zeros((), dtype=F32,
+                                    device=logits.device)), rep
+    return apply_fn
+
 
 def prefill_apply(cfg, max_len: int, last: Optional[int] = None):
     """apply_fn for core.ProtectedModel: prefill, returning the caches in

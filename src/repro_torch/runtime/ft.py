@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._tree import tree_flatten_with_path
 from ..core import (FaultReport, apply_w_view, apply_w_view_inv,
                     stacked_weight_checksums_matmul,
                     weight_checksums_matmul, weight_leaf)
@@ -58,25 +59,12 @@ class FTPolicy:
     audit_weights_every: int = 0       # 0 = off
 
 
-def _flatten(tree, prefix: Tuple[str, ...] = ()):
-    """(path, leaf) pairs of a nested dict, keys sorted as JAX's tree
-    flattening sorts them."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], prefix + (str(k),))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, prefix + (str(i),))
-    else:
-        yield "/".join(prefix), tree
-
-
 def weight_checksums(params) -> Dict[str, np.ndarray]:
     """Trusted per-leaf sums (host-side), refreshed after every accepted
     optimizer step; used to detect at-rest weight corruption."""
     return {name: np.asarray(float(torch.sum(torch.as_tensor(leaf).to(F32))),
                              np.float32)
-            for name, leaf in _flatten(params)}
+            for name, leaf in tree_flatten_with_path(params)}
 
 
 def audit_weights(params, trusted: Dict[str, np.ndarray],

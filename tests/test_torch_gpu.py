@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, and the reduced CNN and serving slices through the kernels.
+version, and the reduced CNN, serving and training slices through the
+kernels.
 Every test here is marked `gpu` and skips on a host without a CUDA card;
 the file needs no JAX, so it runs on the GPU host as it is:
 
@@ -724,3 +725,89 @@ def test_driver_serves_on_card(cuda_device):
     sess.run()
     assert [d.tokens_for(r) for r in rids] == \
         [sess.tokens_for(r) for r in srids]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,m,transposed", [(256, 960, 320, False),
+                                              (128, 64, 1000, True)])
+def test_abft_matmul_vjp_on_card(cuda_device, dtype, n, k, m, transposed):
+    """abft_matmul_vjp with the kernel pinned: three abft_matmul launches
+    per call (one with protect_backward off), clean reports, and O, dD,
+    dW against autograd of the plain product - in bf16 one ulp of the
+    result plus the fp32 summation noise of a K-term dot product on
+    either side (2^-21 sqrt(K) |A| @ |B|, as chip_smoke.py phase 11a), in
+    fp32 rtol 1e-5 (atol 1e-5 of the scale). A transposed W (the tied
+    head's view) is read in place."""
+    from repro_torch import fp32_ieee
+    from repro_torch.core.protected import matmul_raw
+    d = torch.as_tensor(normal(3, (n, k))).to(cuda_device, dtype)
+    store = torch.as_tensor(normal(4, (m, k) if transposed else (k, m))
+                            * k ** -0.5).to(cuda_device, dtype)
+    w = store.T if transposed else store
+    g = torch.as_tensor(normal(5, (n, m))).to(cuda_device, dtype)
+    cfg = tcore.DEFAULT_CONFIG.replace(use_fused_kernel=True)
+
+    def grads(fn):
+        a = d.clone().requires_grad_(True)
+        b = w.detach().clone().requires_grad_(True) if not transposed \
+            else store.clone().requires_grad_(True)
+        bw = b.T if transposed else b
+        with fp32_ieee():
+            o = fn(a, bw)
+            return o, torch.autograd.grad(o, (a, b), g)
+
+    ref_o, ref = grads(matmul_raw)
+    a_, w_, g_ = d.float().abs(), w.float().abs(), g.float().abs()
+    absdot = (a_ @ w_, g_ @ w_.T, (a_.T @ g_).T if transposed else a_.T @ g_)
+    ks = (k, m, n)
+    for protect, launches in ((True, 3), (False, 1)):
+        reports = []
+        TAM.LAUNCHES = 0
+        o, got = grads(lambda a, b: tcore.abft_matmul_vjp(
+            a, b, cfg.replace(protect_backward=protect), reports))
+        torch.cuda.synchronize()
+        assert TAM.LAUNCHES == launches
+        assert [tuple(int(x) for x in r) for r in reports] == \
+            [(0, 0, 0)] * (2 if protect else 0)
+        for x, y, a, kk in zip((o,) + got, (ref_o,) + ref, absdot, ks):
+            x, y = x.detach(), y.detach()
+            assert x.dtype == y.dtype == dtype and x.shape == y.shape
+            if dtype == torch.bfloat16:
+                tol = y.float().abs() * 2.0 ** -7 + 2.0 ** -21 * kk ** 0.5 * a
+                assert bool(((x.float() - y.float()).abs() <= tol).all())
+            else:
+                assert_close(x, y, 1e-5, 1e-5 * float(y.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_bitwise_unprotected(cuda_device, dtype):
+    """One train step of the smoke config on the card (two microbatches):
+    the report clean, no kernel launched (the step runs the plain route,
+    as the JAX package's does), and the new state, loss and gnorm bitwise
+    equal to the abft=False step's from the same state."""
+    import repro_torch.configs as TCF
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import OptConfig
+    cfg = TCF.get("smollm-360m-smoke").replace(dtype=dtype)
+    opt = OptConfig(lr=1e-3)
+    state = TS.init_train_state(None, cfg, opt, device=cuda_device)
+    tokens, labels = host_batch(DataConfig(cfg.vocab_size, 32, 4), 0)
+    batch = {"tokens": tokens.to(cuda_device),
+             "labels": labels.to(cuda_device)}
+    outs = []
+    TAM.LAUNCHES = 0
+    for abft in (True, False):
+        step = TS.make_train_step(cfg.replace(abft=abft), opt,
+                                  microbatches=2, warmup=0)
+        outs.append(step(state, batch))
+    (a, ma), (b, mb) = outs
+    assert TAM.LAUNCHES == 0
+    assert tuple(int(x) for x in ma["report"]) == (0, 0, 0)
+    assert torch.equal(ma["loss"], mb["loss"])
+    assert torch.equal(ma["gnorm"], mb["gnorm"])
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    assert [n for n, _ in fa] == [n for n, _ in fb]
+    for (n, x), (_, y) in zip(fa, fb):
+        assert x.device.type == "cuda" and torch.equal(x, y), n
