@@ -27,6 +27,14 @@ Phases, each fatal on failure:
      torch.matmul and the bound (bf16 peak 989 TFLOP/s; the fp32-FMA
      bound beside it); the host us of one call of each wrapper at the
      decode wq shape;
+  3c. the same two bf16 kernels at Mamba2-1.3B's GEMM shapes (in_proj
+     2048 x 8512, out_proj 4096 x 2048, the untied head 2048 x 50280) at
+     8, 97 and 128 rows: flags equal to the plain version's and clear, O
+     within one bf16 ulp plus the fp32 summation noise and bitwise equal
+     between the two kernels, the partials finished into chunk sums on the
+     card, checksums predicting +1e4 at one element flagging exactly its
+     chunk; device ms of both kernels and torch.matmul beside the bound,
+     the detect pass's row segment and the partial tiles used;
   4. the slice: build_plan + forward_cnn on that ResNet-18 in per_layer
      and deferred mode with the kernels pinned (use_fused_kernel=True):
      zero clean flags, bitwise clean-path contracts, allclose to the
@@ -88,9 +96,10 @@ Phases, each fatal on failure:
      new plans' launches per forward, their forwards timed in turns with
      the unprotected one and phase 4's pinned plan (error-free overhead);
      the profile's decisions for SmolLM-360M at batch 8 x seq 128;
-  10. the async ServingDriver on phase 6's model, plan and 16 requests:
-     every request completes with phase 6's tokens, 225 detect launches
-     and 1 host read per forward; backpressure (capacity 4: 12 of 16
+  10. the async ServingDriver on phase 6's model cut to its first 4 layers
+     at full width (a plan of its own) and phase 6's 16 requests: every
+     request completes with the synchronous session's tokens, 29 detect
+     launches and 1 host read per forward; backpressure (capacity 4: 12 of 16
      rejected, the 4 accepted served) and a lapsed deadline (timeout,
      never a slot); phase 7's head drill under a fault_scope around
      submit/drain, attributed to slot 3's request only; phase 7b's
@@ -107,8 +116,9 @@ Phases, each fatal on failure:
      gradients back within tolerance; bf16: verdicts recorded, the
      reference's bf16 thresholds do not promise them, ROADMAP 3.5), and
      the device ms of the backward's two launches, the D^T copy,
-     torch.matmul and the plain version beside the bound; (b) the train step on SmolLM-360M at full width
-     and depth (bf16 params, fp32 AdamW, batch 8 x 256 in 2 microbatches,
+     torch.matmul and the plain version beside the bound; (b) the train
+     step on SmolLM-360M at full width and 8 of its 32 layers (bf16
+     params, fp32 AdamW, batch 8 x 256 in 2 microbatches,
      warmup 1, lr 1e-3) over three cycled batches for 12 steps: every
      report clean, the loss falling, one step bitwise its abft=False
      twin, no kernel launched (the plain route, as in the JAX package);
@@ -118,7 +128,23 @@ Phases, each fatal on failure:
      (bf16 leaves through '<V2' files), a flipped byte refused by
      restore, and one element of the head's output corrupted (+1e4, as in
      phase 7) in one step corrected and counted by StepRunner, the loss
-     within rtol 1e-4.
+     within rtol 1e-4;
+  12. Mamba2-1.3B at full width and depth in bf16 (random params from a
+     seed), served as phase 6 serves SmolLM-360M (8 slots, deferred, the
+     kernels pinned, 16 requests of 16-128 tokens, each prefilled at its
+     own length, 32 new tokens each): every request finishes by length,
+     zero flags, 97 abft_matmul_detect launches and 1 host read per
+     forward; per_layer serves the first 8 requests' 8 tokens alike with
+     97 reads and 97 abft_matmul launches per forward; teacher-forced
+     through the uncached forward, every served token within 0.1 of the
+     unprotected forward's top logit; the unprotected and the kernels-on
+     sessions timed in turns (median decode-step ms, TTFT p50) and one
+     decode step of each profiled; drills: +1e4 at the head on slot 3 in
+     every decode step, +1e3 at one repeat's in_proj in every prefill, and
+     +1e4 at one repeat's out_proj on slot 3 in one mid-stream decode step
+     after which every token equals the clean run's (the corrective rerun
+     starts from the step's input state); init and build_plan seconds and
+     peak device memory.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -179,11 +205,24 @@ SERVE_SITES = (("wq/wo", 960, 960, False, 64), ("wk/wv", 960, 320, False, 64),
 # prefill buckets; all are checked, the first and last also timed
 SERVE_ROWS = (SLOTS, 16, 32, 64, 128)
 TIMED_ROWS = (SLOTS, 128)
-# the training slice: SmolLM-360M at full width and depth, bf16 params and
-# fp32 AdamW state, batch 8 x seq 256 in two microbatches
+# the training slice: SmolLM-360M at full width, bf16 params and fp32
+# AdamW state, batch 8 x seq 256 in two microbatches
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 12, 1e-3
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ   # rows of a training GEMM (11a)
 DRIVER_LAYERS = 4                      # depth of the driver's runs (11c)
+# depth of phase 10's driver and of phase 11b's train step: SmolLM-360M's
+# first layers at full width (cut from 32 to make room for phase 12)
+DRIVER_PHASE_LAYERS = 4
+TRAIN_LAYERS = 8
+# the Mamba-2 slice: Mamba2-1.3B at full width and depth, bf16, served as
+# phase 6 serves SmolLM-360M; (label, K, M, launches per forward) of its
+# GEMM sites (48 layers of in_proj and out_proj, the untied head) and the
+# row counts phase 3c holds them at: a decode step's slots, an odd exact
+# prefill (the scheduler does not bucket recurrent models) and 128
+MAMBA_ARCH = "mamba2-1.3b"
+MAMBA_SITES = (("in_proj", 2048, 8512, 48), ("out_proj", 4096, 2048, 48),
+               ("head", 2048, 50280, 1))
+MAMBA_ROWS = (SLOTS, 97, 128)
 
 
 def log(*a):
@@ -290,20 +329,58 @@ def conv_output_shapes(cfg):
     return shapes
 
 
-def device_kernels(fn) -> dict:
-    """The device kernels one call of fn launches, by name, with their
-    counts (torch.profiler, after a warm-up call)."""
+# a trace that records the host side but none of the card's activity
+# measures nothing: CUPTI now and then hands the profiler no record of a
+# kernel that ran, so such a trace is taken again
+TRACE_TRIES = 3
+# the host calls by which a kernel, a copy or a fill reaches the card, as
+# the profiler names them (runtime API and driver API)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+                "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemsetAsync",
+                "cudaMemcpyAsync", "cudaMemset", "cudaMemcpy")
+
+
+def device_trace(fn):
+    """One call of fn under torch.profiler (CPU and CUDA activity), after a
+    warm-up call: (the device-side events - a kernel's own record, not the
+    aten op that launched it -, the host's launch calls by name with their
+    counts, the call's wall ms). A trace that holds no device event is
+    taken again, up to TRACE_TRIES times; the last one is returned
+    whatever it holds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("Activity Buffer")}
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        dev = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("Activity Buffer")]
+        calls = {e.key: e.count for e in events if e.key in LAUNCH_CALLS}
+        if dev or attempt == TRACE_TRIES:
+            return dev, calls, wall
+        log(f"  (trace {attempt} of {TRACE_TRIES} held no device event, "
+            f"launch calls {calls}; tracing again)")
+
+
+def device_kernels(fn) -> dict:
+    """The device kernels one call of fn launches, by name, with their
+    counts (device_trace). Where no trace recorded the card's side, the
+    host's launch calls of the last one stand in for them, under their
+    own names (each is one kernel, copy or fill on the card)."""
+    dev, calls, _ = device_trace(fn)
+    if dev:
+        return {e.key: e.count for e in dev}
+    log(f"  ({TRACE_TRIES} traces held no device event: counting the host's "
+        f"launch calls {calls})")
+    return calls
 
 
 def check_checksum_reduce(cfg, gen, report):
@@ -799,30 +876,167 @@ def check_serving_kernels(gen, report):
 
 
 # --------------------------------------------------------------------------
+# phase 3c: the kernels at Mamba2-1.3B's shapes (bf16)
+# --------------------------------------------------------------------------
+
+def check_mamba_kernels(gen, report):
+    """abft_matmul_detect and abft_matmul (bf16) at Mamba2-1.3B's three
+    GEMM shapes (MAMBA_SITES) and at a decode step's 8 rows, an odd exact
+    prefill (97) and 128 rows: flags equal to the plain version's and
+    clear, O within one bf16 ulp plus the fp32 summation noise of the
+    plain version and bitwise equal between the two kernels, the partials
+    allclose and finished into chunk sums on the card, and checksums
+    predicting +1e4 at one element flag exactly its chunk. Per shape the
+    device ms of both kernels and of torch.matmul beside the bound, the
+    detect pass's row segment and the partial tiles."""
+    import torch
+    from repro_torch import fp32_ieee
+    from repro_torch.core.plan import calibrate_tau_factor
+    from repro_torch.core.protected import pick_chunk
+    from repro_torch.core.thresholds import tau_scalar_coeffs
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (abft_matmul_detect_ref,
+                                         abft_matmul_ref, chunk_sums_ref)
+    bf16 = torch.bfloat16
+    rows, tot = [], {}
+    with torch.no_grad(), fp32_ieee():
+        for n in MAMBA_ROWS:
+            for label, k, m, count in MAMBA_SITES:
+                d = torch.randn((n, k), generator=gen, device="cuda").to(bf16)
+                w = (torch.randn((k, m), generator=gen, device="cuda")
+                     * k ** -0.5).to(bf16)
+                rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
+                bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
+                tiling = AM.kernel_tiling(n, k, m, bf16, cb)
+                cs, sq = exact_chunk_checksums(d, w, rb, cb)
+                ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+                o, flag, score = AM.abft_matmul_detect(d, w, *cs, rb, cb,
+                                                       ta, tb)
+                o_r, flag_r, score_r = abft_matmul_detect_ref(
+                    d, w, *cs, rb, cb, ta, tb)
+                o_mm, parts = AM.abft_matmul(d, w, bm, bn)
+                _, parts_r = abft_matmul_ref(d, w, bm, bn)
+                sums = ops.chunk_sums_from_partials(parts, rb, cb)
+                sums_r = ops.chunk_sums_from_partials(parts_r, rb, cb)
+                absdot = d.float().abs() @ w.float().abs()
+                # +1e4 at one element of the last chunk, as the checksums
+                # of the faulted product would predict it
+                r_, c_ = n - 2, m - 3
+                p32 = d.float() @ w.float()
+                p32[r_, c_] += 1e4
+                bad = [*chunk_sums_ref(p32, rb, cb)[:3], cs[3]]
+                _, flag_t, _ = AM.abft_matmul_detect(d, w, *bad, rb, cb, ta,
+                                                     tb)
+                torch.cuda.synchronize()
+                what = f"{label} ({n}x{k})@({k}x{m})"
+                if not torch.equal(flag, flag_r) or int(flag.sum()):
+                    fail(f"abft_matmul_detect {what}: flags {flag.tolist()} "
+                         f"vs plain {flag_r.tolist()}")
+                if not grads_within(o, o_r, bf16, absdot, k):
+                    fail(f"abft_matmul_detect {what}: O beyond one bf16 ulp "
+                         f"plus the summation noise (max |err| "
+                         f"{max_err(o, o_r):.3g})")
+                if not torch.equal(o, o_mm):
+                    fail(f"{what}: abft_matmul_detect and abft_matmul round O "
+                         f"differently (max |diff| {max_err(o, o_mm):.3g})")
+                noise = 2.0 ** -24 * (k ** 0.5 + (rb * cb) ** 0.5) / ta
+                e_s = max_err(score, score_r)
+                if not torch.allclose(score, score_r, rtol=1e-3, atol=noise):
+                    fail(f"abft_matmul_detect {what}: clean scores differ by "
+                         f"{e_s:.3g} (limit {noise:.3g})")
+                e_p = 0.0
+                for g_, r2, nm in zip(list(parts[:3]) + list(sums),
+                                      list(parts_r[:3]) + list(sums_r),
+                                      ("colsum", "rowsum", "sumsq", "s5",
+                                       "s6", "s7", "chunk sumsq")):
+                    # the chunk sums (s*) add up to 1e5 partials, weighted
+                    # up to 1024: held to their scale
+                    lim = (1e-4 * float(r2.abs().max()) if nm[0] == "s"
+                           else 1e-3 * k ** 0.5)
+                    if g_.shape != r2.shape or not torch.allclose(
+                            g_, r2, rtol=1e-5, atol=lim):
+                        fail(f"abft_matmul bf16 {what} {nm}: max |err| "
+                             f"{max_err(g_, r2):.3g}")
+                    e_p = max(e_p, max_err(g_, r2))
+                want = torch.zeros_like(flag_t)
+                want[r_ // rb, c_ // cb] = 1
+                if not torch.equal(flag_t, want):
+                    fail(f"abft_matmul_detect {what}: +1e4 at ({r_}, {c_}) "
+                         f"flags {flag_t.nonzero().tolist()}")
+                pbm, pbn = min(bm, tiling.tm), min(bn, tiling.tn)
+                row = {"site": label, "shape": [n, k, m], "chunks": [rb, cb],
+                       "per_forward": count,
+                       "tiling": {**tiling._asdict(),
+                                  "blocks": tiling.tiles(n, m)
+                                  * tiling.splits},
+                       "partials": [bm, bn], "kernel_partials": [pbm, pbn],
+                       "clean_score": float(score.max()),
+                       "max_abs_err": {"o": max_err(o, o_r), "score": e_s,
+                                       "partials": e_p}}
+                args = copies([d, w] + cs)
+                row["ms"] = time_device(lambda a, b, *c: AM.abft_matmul_detect(
+                    a, b, *c, rb, cb, ta, tb), args)
+                row["abft_matmul_ms"] = time_device(
+                    lambda a, b, *c: AM.abft_matmul(a, b, bm, bn), args)
+                row["library_ms"] = time_device(
+                    lambda a, b, *c: torch.matmul(a, b), args)
+                del args
+                nb, mb = n // rb, m // cb
+                nbytes = 2.0 * (n * k + k * m + n * m) + 4.0 * 6 * nb * mb
+                flops = 2.0 * n * k * m + 5.0 * n * m
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    nbytes, flops, BF16_FLOPS_PER_S)
+                pm, pn = -(-n // bm), -(-m // bn)
+                mm_bytes = (2.0 * (n * k + k * m + n * m)
+                            + 4.0 * (pm * m + n * pn + pm * pn))
+                row["abft_matmul_bound_ms"], row["abft_matmul_bound_by"] = \
+                    bound_ms(mm_bytes, 2.0 * n * k * m + 4.0 * n * m,
+                             BF16_FLOPS_PER_S)
+                rows.append(row)
+                t = tot.setdefault(n, {"ms": 0.0, "abft_matmul_ms": 0.0,
+                                       "library_ms": 0.0, "bytes": 0.0,
+                                       "flops": 0.0})
+                for key in ("ms", "abft_matmul_ms", "library_ms"):
+                    t[key] += count * row[key]
+                t["bytes"] += count * nbytes
+                t["flops"] += count * flops
+                log(f"  {what} chunks ({rb},{cb}) x{count}: tile "
+                    f"{tiling.tm}x{tiling.tn}, {tiling.splits} splits, seg "
+                    f"{tiling.seg}, partial tiles ({bm},{bn}) from the "
+                    f"kernel's ({pbm},{pbn}); detect ms {row['ms']:.4f} "
+                    f"abft_matmul {row['abft_matmul_ms']:.4f} torch.matmul "
+                    f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+                    f"({row['bound_by']}; abft_matmul's "
+                    f"{row['abft_matmul_bound_ms']:.4f}); O err "
+                    f"{max_err(o, o_r):.3g}, clean score "
+                    f"{float(score.max()):.3g}; +1e4 flagged chunk "
+                    f"{[r_ // rb, c_ // cb]}")
+    for n, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"],
+                                                BF16_FLOPS_PER_S)
+        log(f"  per forward at {n} rows (97 launches): detect ms "
+            f"{t['ms']:.4f} abft_matmul {t['abft_matmul_ms']:.4f} "
+            f"torch.matmul {t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}), {t['bytes'] / 1e6:.1f} MB")
+    report["mamba_kernels"] = {"per_shape": rows, "per_forward": tot}
+    return tot
+
+
+# --------------------------------------------------------------------------
 # phases 4 and 5: the slice
 # --------------------------------------------------------------------------
 
 def profile_forward(fn) -> dict:
-    """One call of fn under torch.profiler: wall time, device busy time
-    (the sum of the kernels' own device times), the idle share of the
-    wall, and the kernels that take the most device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    """One call of fn under torch.profiler (device_trace): wall time,
+    device busy time (the sum of the kernels' own device times), the idle
+    share of the wall, and the kernels that take the most device time."""
+    events, _, wall = device_trace(fn)
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     # the device-side events only: an aten op's own device time repeats
     # the time of the kernels it launched
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and dev(e) > 0 and not e.key.startswith("Activity Buffer")]
+    kern = [e for e in events if dev(e) > 0]
     busy = sum(dev(e) for e in kern) / 1e3
     top = sorted(kern, key=dev, reverse=True)[:12]
     return {"wall_ms": wall, "device_ms": busy,
@@ -1251,6 +1465,34 @@ def serve(params, cfg, plan, prompts, gen: int, correction="auto",
     return sess, rids, report, steps
 
 
+def teacher_forced(params, cfg, fused, prompts, served):
+    """Each prompt with its served tokens through the uncached forward,
+    unprotected and under the plan's detect-only routes: (the largest
+    logit gap between the two, the largest margin of a served token's
+    unprotected logit below the unprotected top logit at its position)."""
+    import torch
+    from repro_torch import core, fp32_ieee
+    from repro_torch.models import transformer as M
+    ucfg = cfg.replace(abft=False)
+    gap, worst = 0.0, 0.0
+    with torch.no_grad(), fp32_ieee():
+        for p, toks in zip(prompts, served):
+            seq = torch.as_tensor(list(p) + list(toks), device=DEVICE)[None]
+            ref, _, _ = M._forward(params, seq, ucfg)
+            with core.plan_scope(fused, mode="detect_only"):
+                kern, _, _ = M._forward(params, seq, cfg)
+            plen = len(p)
+            pos = torch.arange(plen - 1, seq.shape[1] - 1, device=DEVICE)
+            ref_p = ref[0, pos]
+            if not bool(torch.isfinite(kern).all()):
+                fail(f"non-finite logits teacher-forcing {cfg.name}")
+            gap = max(gap, max_err(kern[0, pos], ref_p))
+            margin = ref_p.max(dim=-1).values - ref_p.gather(
+                1, seq[0, plen:, None])[:, 0]
+            worst = max(worst, float(margin.max()))
+    return gap, worst
+
+
 def run_serving(report):
     """Phase 6: full-width bf16 SmolLM-360M served in deferred mode
     through the kernels, checked for zero flags, 225 detect launches and
@@ -1259,7 +1501,7 @@ def run_serving(report):
     profile. Phase 7: a decode fault at the tied head and a prefill fault
     at a stage site, detected, corrected and attributed."""
     import torch
-    from repro_torch import configs, core, fp32_ieee
+    from repro_torch import configs, core
     from repro_torch.core import workflow
     from repro_torch.kernels import abft_matmul as AM
     from repro_torch.models import transformer as M
@@ -1332,21 +1574,8 @@ def run_serving(report):
 
     # -- teacher-forced check against the unprotected forward ----------------
     ucfg = cfg.replace(abft=False)
-    gap, worst = 0.0, 0.0
-    with torch.no_grad(), fp32_ieee():
-        for r, p in zip(rids, prompts):
-            seq = torch.as_tensor(list(p) + tokens[r], device=DEVICE)[None]
-            ref, _, _ = M._forward(params, seq, ucfg)
-            with core.plan_scope(fused, mode="detect_only"):
-                kern, _, _ = M._forward(params, seq, cfg)
-            plen = len(p)
-            pos = torch.arange(plen - 1, seq.shape[1] - 1, device=DEVICE)
-            served = seq[0, plen:]
-            ref_p = ref[0, pos]
-            gap = max(gap, max_err(kern[0, pos], ref_p))
-            margin = ref_p.max(dim=-1).values - ref_p.gather(
-                1, served[:, None])[:, 0]
-            worst = max(worst, float(margin.max()))
+    gap, worst = teacher_forced(params, cfg, fused, prompts,
+                                [tokens[r] for r in rids])
     log(f"  teacher-forced vs the unprotected forward: largest logit gap "
         f"{gap:.4g}; served tokens at most {worst:.4g} below the reference's "
         f"top logit (limit {DELTA})")
@@ -1891,26 +2120,38 @@ def drive(params, cfg, plan, prompts, gen: int, paused=False, hook=None,
 
 
 def run_driver_phase(report, serve_ctx) -> dict:
-    """Phase 10: phase 6's SmolLM-360M served by the async ServingDriver
-    (8 slots, 256 positions, deferred, the kernels pinned) on the same 16
-    requests: every request completes with phase 6's tokens, 225 detect
-    launches and one host read per forward; backpressure (capacity 4, 16
-    submitted at once: the rest rejected, the accepted served) and a
-    lapsed deadline (timeout, never a slot); phase 7's head drill under a
-    fault_scope around submit/drain, attributed to the requests of slot 3
-    only; phase 7b's one-column corruption repaired in place by the
-    controller's audit while requests are admitted; and the driver timed
-    against the synchronous session in turns (step period, TTFT p50)."""
+    """Phase 10: phase 6's SmolLM-360M, cut to its first DRIVER_PHASE_LAYERS
+    layers at full width (the params are views of phase 6's, the plan is
+    built for them), served by the async ServingDriver (8 slots, 256
+    positions, deferred, the kernels pinned) on phase 6's 16 requests:
+    every request completes with the synchronous session's tokens, 7 detect
+    launches per layer plus the head's and one host read per forward;
+    backpressure (capacity 4, 16 submitted at once: the rest rejected, the
+    accepted served) and a lapsed deadline (timeout, never a slot); phase
+    7's head drill under a fault_scope around submit/drain, attributed to
+    the requests of slot 3 only; phase 7b's one-column corruption repaired
+    in place by the controller's audit while requests are admitted; and
+    the driver timed against the synchronous session in turns (step
+    period, TTFT p50)."""
     import torch
+    from repro_torch import core
+    from repro_torch._tree import tree_map
     from repro_torch.core import weight_leaf, workflow
     from repro_torch.kernels import abft_matmul as AM
 
-    log("phase 10: the async serving driver")
-    params, cfg, fused = (serve_ctx["params"], serve_ctx["cfg"],
-                          serve_ctx["fused"])
-    prompts, tokens = serve_ctx["prompts"], serve_ctx["tokens"]
+    log(f"phase 10: the async serving driver ({DRIVER_PHASE_LAYERS} layers)")
+    cfg = serve_ctx["cfg"].replace(num_layers=DRIVER_PHASE_LAYERS)
+    full = serve_ctx["params"]
+    params = {**full, "stages": tree_map(lambda t: t[:DRIVER_PHASE_LAYERS],
+                                         full["stages"])}
+    fused = core.force_fused_matmul(core.build_plan(
+        params, cfg, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    prompts = serve_ctx["prompts"]
+    sess, rids, _, _ = serve(params, cfg, fused, prompts, GEN)
+    tokens = [sess.tokens_for(r) for r in rids]
+    del sess
     n_sites = cfg.stages()[1] * 7 + 1
-    res = {}
+    res = {"layers": DRIVER_PHASE_LAYERS}
 
     # -- the main path ---------------------------------------------------------
     AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
@@ -1924,7 +2165,8 @@ def run_driver_phase(report, serve_ctx) -> dict:
     reasons = [r["finish_reason"] for r in rep["requests"]]
     log(f"  driver: {rep['completed']} requests, {c['prefills']} prefills + "
         f"{c['decode_steps']} decode steps, launches {launches}, host reads "
-        f"{reads}, faults {c['faults_detected']}; tokens == phase 6: {same}")
+        f"{reads}, faults {c['faults_detected']}; tokens == the session's: "
+        f"{same}")
     if not all(v.accepted for v in vs) or reasons != ["length"] * N_REQ:
         fail(f"driver: verdicts {vs}, finished {reasons}")
     if c["faults_detected"] or c["dropped"] or not same:
@@ -1964,7 +2206,7 @@ def run_driver_phase(report, serve_ctx) -> dict:
           and rep["counters"]["timeouts"] == 1)
     log(f"  capacity 4, {N_REQ} submitted at once: accepted {len(acc)}, "
         f"rejected {len(rej)} ({set(rej)}), completed {rep['completed']} "
-        f"with phase 6's tokens; lapsed deadline: {dr['finish_reason']}, "
+        f"with the session's tokens; lapsed deadline: {dr['finish_reason']}, "
         f"slot {dr['slot']}")
     if not ok:
         fail(f"backpressure/deadline: accepted {acc}, rejected {rej}, "
@@ -2291,7 +2533,8 @@ def check_training_gemms(report) -> dict:
 
 def run_training(report) -> dict:
     """Phase 11b: the train step (launch.steps.make_train_step) at
-    SmolLM-360M's full width and depth, bf16 params and fp32 AdamW state,
+    SmolLM-360M's full width and TRAIN_LAYERS of its 32 layers, bf16
+    params and fp32 AdamW state,
     batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB microbatches, warmup 1, lr
     TRAIN_LR, over three cycled host_batch batches for TRAIN_STEPS steps:
     every report clean and every loss finite, the last loss below the
@@ -2309,8 +2552,8 @@ def run_training(report) -> dict:
     from repro_torch.models import transformer as M
     from repro_torch.optim import OptConfig
 
-    log("phase 11b: the train step at full width and depth")
-    cfg = configs.get(SERVE_ARCH)
+    log(f"phase 11b: the train step at full width, {TRAIN_LAYERS} layers")
+    cfg = configs.get(SERVE_ARCH).replace(num_layers=TRAIN_LAYERS)
     opt = OptConfig(lr=TRAIN_LR)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2510,6 +2753,288 @@ def run_training_phase(report) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 12: Mamba2-1.3B serving
+# --------------------------------------------------------------------------
+
+def run_mamba_serving(report) -> dict:
+    """Phase 12: Mamba2-1.3B at full width and depth in bf16 (random params
+    from a seed) served as phase 6 serves SmolLM-360M: deferred, the
+    kernels pinned, 8 slots, 16 requests (prompts of 16-128 tokens, each
+    prefilled at its own length), 32 new tokens each. Checks: every
+    request finishes by length, zero flags, no slot hit, 97 detect
+    launches and 1 host read per forward; per_layer serves the first 8
+    requests' 8 tokens alike with 97 reads and 97 abft_matmul launches per
+    forward; teacher-forced through the uncached forward, every served
+    token within DELTA of the unprotected forward's top logit. Timing:
+    the unprotected and the kernels-on sessions in turns; a profile of
+    one decode step of each. Drills: +1e4 at the head on slot 3 in every
+    decode step, +1e3 in every prefill at one repeat's in_proj, and +1e4
+    at one repeat's out_proj on slot 3 in one mid-stream decode step
+    (the corrective rerun must start from the step's input state: every
+    later token equals the clean run's)."""
+    import torch
+    from repro_torch import configs, core
+    from repro_torch._tree import tree_map
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import ProtectedSession
+
+    log("phase 12: Mamba2-1.3B serving")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(MAMBA_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = core.build_plan(params, cfg, batch=SLOTS, seq=MAX_LEN,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan.validate(params)
+    fused = core.force_fused_matmul(plan)
+    reps = cfg.stages()[1]
+    n_sites = reps * 2 + 1
+    if len(fused) != 3:
+        fail(f"plan has {len(fused)} entries, want 3")
+    log(f"  {MAMBA_ARCH}: {M.count_params(cfg) / 1e6:.1f} M params bf16, "
+        f"{n_sites} protected GEMMs per forward; init {init_s:.1f} s, "
+        f"build_plan {plan_s:.1f} s")
+    res = {"init_s": init_s, "build_plan_s": plan_s}
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+
+    # -- the main path: deferred, kernels pinned -----------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    sess, rids, rep, steps = serve(params, cfg, fused, prompts, GEN)
+    c = rep["counters"]
+    forwards = c["prefills"] + c["decode_steps"]
+    launches = {"abft_matmul_detect": AM.DETECT_LAUNCHES,
+                "abft_matmul": AM.LAUNCHES}
+    reads = workflow.HOST_READS
+    tokens = {r: sess.tokens_for(r) for r in rids}
+    reasons = [r["finish_reason"] for r in rep["requests"]]
+    log(f"  deferred, kernels on: {rep['completed']} requests (prompts "
+        f"{sorted(len(p) for p in prompts)}), {c['prefills']} prefills + "
+        f"{c['decode_steps']} decode steps, launches {launches}, host reads "
+        f"{reads}, faults {c['faults_detected']}")
+    if reasons != ["length"] * N_REQ or rep["completed"] != N_REQ:
+        fail(f"requests finished with {reasons}")
+    if c["faults_detected"] or c["dropped"] or c["faults_unattributed"]:
+        fail(f"clean serving counted {c}")
+    if any(any(h) for h in steps["hits"]):
+        fail("the slot localizer hit on a clean step")
+    if launches != {"abft_matmul_detect": n_sites * forwards,
+                    "abft_matmul": 0} or reads != forwards:
+        fail(f"{forwards} clean forwards launched {launches} with {reads} host "
+             f"reads; want {n_sites} detect launches and 1 read each")
+    res["deferred"] = {"counters": c, "launches": launches,
+                       "host_reads": reads, "forwards": forwards}
+
+    # -- per_layer serves the same tokens ------------------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    s_pl, r_pl, rep_pl, _ = serve(params, cfg, fused, prompts[:8], 8,
+                                  correction="per_layer")
+    f_pl = rep_pl["counters"]["prefills"] + rep_pl["counters"]["decode_steps"]
+    got = [s_pl.tokens_for(r) for r in r_pl]
+    want = [tokens[r][:8] for r in rids[:8]]
+    log(f"  per_layer, first 8 requests x 8 tokens: host reads "
+        f"{workflow.HOST_READS} over {f_pl} forwards, abft_matmul launches "
+        f"{AM.LAUNCHES}; tokens == deferred: {got == want}")
+    if got != want:
+        fail(f"per_layer tokens {got} differ from deferred's {want}")
+    if workflow.HOST_READS != n_sites * f_pl or AM.LAUNCHES != n_sites * f_pl:
+        fail(f"per_layer: {workflow.HOST_READS} reads, {AM.LAUNCHES} launches")
+    res["per_layer"] = {"host_reads": workflow.HOST_READS, "forwards": f_pl,
+                        "launches": AM.LAUNCHES}
+
+    # -- teacher-forced through the uncached forward -------------------------
+    # In bf16 the two routes of one uncached forward (the kernels, cuBLAS)
+    # differ by rounding only, and 48 layers carry that to logit gaps far
+    # above DELTA: the gap is this model's noise floor. A served token was
+    # the top of logits that lie within about that gap of the unprotected
+    # ones, so its margin below their top is held to twice the gap (plus
+    # DELTA for the cached against the uncached forward). The DELTA gate
+    # holds the same weights in float32, served through the same session
+    # and kernels.
+    ucfg = cfg.replace(abft=False)
+    gap, worst = teacher_forced(params, cfg, fused, prompts,
+                                [tokens[r] for r in rids])
+    log(f"  teacher-forced, bf16: the kernel route and cuBLAS differ by up to "
+        f"{gap:.4g} in a logit on the same uncached forwards (the noise "
+        f"floor); served tokens at most {worst:.4g} below the unprotected "
+        f"top logit (limit 2 x gap + {DELTA} = {2 * gap + DELTA:.4g})")
+    if not worst <= 2 * gap + DELTA:
+        fail(f"bf16: a served token's unprotected logit is {worst:.4g} below "
+             f"the top, beyond twice the routes' gap {gap:.4g} plus {DELTA}")
+    res["teacher_forced_bf16"] = {"max_logit_gap": gap, "max_margin": worst}
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    fused32 = core.force_fused_matmul(core.build_plan(
+        p32, cfg32, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    s32, r32, rep32, _ = serve(p32, cfg32, fused32, prompts[:SLOTS], 8)
+    c32 = rep32["counters"]
+    if c32["faults_detected"] or rep32["completed"] != SLOTS:
+        fail(f"float32 twin: counters {c32}")
+    gap32, worst32 = teacher_forced(p32, cfg32, fused32, prompts[:SLOTS],
+                                    [s32.tokens_for(r) for r in r32])
+    log(f"  teacher-forced, float32 twin (the same weights, first 8 requests "
+        f"x 8 tokens through the session and kernels): largest logit gap "
+        f"{gap32:.4g}; served tokens at most {worst32:.4g} below the "
+        f"unprotected uncached forward's top logit (limit {DELTA})")
+    if not worst32 <= DELTA:
+        fail(f"float32 twin: a served token's reference logit is "
+             f"{worst32:.4g} below the top")
+    res["teacher_forced_f32"] = {"max_logit_gap": gap32,
+                                 "max_margin": worst32}
+    del p32, fused32, s32
+
+    # -- timings: two sessions in turns --------------------------------------
+    sessions = {"unprotected": (ucfg, None), "kernels_on": (cfg, fused)}
+    times = {k: {"decode_ms": [], "ttft_ms": []} for k in sessions}
+    for rnd in range(TIMED_ROUNDS):
+        keys = list(sessions)
+        for k in keys[rnd % 2:] + keys[:rnd % 2]:
+            kcfg, kplan = sessions[k]
+            _, _, rp, st = serve(params, kcfg, kplan, prompts, GEN)
+            times[k]["decode_ms"].append(statistics.median(st["ms"]))
+            times[k]["ttft_ms"].append(rp["ttft_p50_s"] * 1e3)
+    for k, v in times.items():
+        log(f"  {k}: median decode step ms {v['decode_ms']}, TTFT p50 ms "
+            f"{v['ttft_ms']}")
+    med = {k: {m: statistics.median(v[m]) for m in v} for k, v in times.items()}
+    over = {m: med["kernels_on"][m] / med["unprotected"][m] - 1
+            for m in med["kernels_on"]}
+    log(f"  error-free overhead, kernels on: decode step "
+        f"{over['decode_ms'] * 100:.1f}%, TTFT p50 {over['ttft_ms'] * 100:.1f}%")
+    res["times"], res["overhead"] = times, over
+
+    # -- profile of one decode step of each ------------------------------------
+    res["profile"] = {}
+    for k, (kcfg, kplan) in sessions.items():
+        ps = ProtectedSession(params, kcfg, kplan, slots=SLOTS,
+                              max_len=MAX_LEN, device=DEVICE)
+        for p in prompts[:SLOTS]:
+            ps.submit(p, max_new_tokens=GEN)
+        ps.step()                     # admits all 8, one decode step
+        prof = profile_forward(ps.step)
+        res["profile"][k] = prof
+        log(f"  profile, one decode step {k}: wall {prof['wall_ms']:.3f} ms, "
+            f"device busy {prof['device_ms']:.3f} ms ({prof['kernels']} "
+            f"kernels), idle share {prof['idle_share']:.3f}; top: " + ", ".join(
+                f"{t['name'][:40]} {t['ms']:.3f}" for t in prof["top"][:5]))
+        del ps
+
+    # -- drills ------------------------------------------------------------------
+    drill_prompts, drill_ids = prompts[:SLOTS], rids[:SLOTS]
+    clean = [tokens[r][:8] for r in drill_ids]
+    target, rep_hit = 3, reps // 2
+
+    def by_slot_of(rp, ids):
+        recs = {r["id"]: r for r in rp["requests"]}
+        return {recs[r]["slot"]: recs[r] for r in ids}
+
+    def head_hook(o):
+        if o.dim() == 3 and o.shape[0] == SLOTS and o.shape[1] == 1:
+            o = o.clone()
+            o[target, 0, 1234 % o.shape[-1]] += 1e4
+        return o
+
+    s_d, r_d, rep_d, st_d = serve(params, cfg, fused, drill_prompts, 8,
+                                  hook=("embed/head", head_hook))
+    by_slot, cd = by_slot_of(rep_d, r_d), rep_d["counters"]
+    hit_slots = sorted({i for h in st_d["hits"] for i, x in enumerate(h) if x})
+    same = [s_d.tokens_for(r) for r in r_d] == clean
+    ok = (by_slot[target]["faults_detected"] == cd["decode_steps"]
+          and by_slot[target]["corrections_applied"] == cd["decode_steps"]
+          and by_slot[target]["residuals"] == 0
+          and all(v["faults_detected"] == 0 for sl, v in by_slot.items()
+                  if sl != target)
+          and cd["faults_unattributed"] == 0 and cd["residual_steps"] == 0
+          and hit_slots == [target])
+    log(f"  decode fault at embed/head, slot {target}: {cd['faults_detected']} "
+        f"detected / {cd['faults_corrected']} corrected over "
+        f"{cd['decode_steps']} steps, localizer hit slots {hit_slots}, "
+        f"residual steps {cd['residual_steps']}; tokens == clean: {same}")
+    if not (ok and same):
+        fail(f"head drill: {by_slot} counters {cd} tokens equal {same}")
+    res["drills"] = {"head": {"counters": cd, "hit_slots": hit_slots}}
+
+    calls = [0]
+
+    def in_proj_hook(o):
+        # every prefill pass calls the site once per repeat, in order
+        if o.shape[0] == 1 and o.shape[1] > 1:
+            calls[0] += 1
+            if (calls[0] - 1) % reps == rep_hit:
+                o = o.clone()
+                o[0, 5, 17] += 1e3
+        return o
+
+    site = "stages/b0_ssm/ssm/in_proj"
+    s_p, r_p, rep_p, _ = serve(params, cfg, fused, drill_prompts, 8,
+                               hook=(site, in_proj_hook))
+    recs = {r["id"]: r for r in rep_p["requests"]}
+    cp_ = rep_p["counters"]
+    same = [s_p.tokens_for(r) for r in r_p] == clean
+    ok = (all(recs[r]["prefill_detected"] == 1
+              and recs[r]["faults_detected"] == 1
+              and recs[r]["corrections_applied"] == 1
+              and recs[r]["residuals"] == 0 for r in r_p)
+          and cp_["residual_steps"] == 0 and cp_["faults_unattributed"] == 0)
+    log(f"  prefill fault at {site}, repeat {rep_hit}: prefill_detected "
+        f"{[recs[r]['prefill_detected'] for r in r_p]}, corrected "
+        f"{cp_['faults_corrected']}/{cp_['faults_detected']}, residuals "
+        f"{[recs[r]['residuals'] for r in r_p]}; tokens == clean: {same}")
+    if not (ok and same):
+        fail(f"in_proj drill: {recs} counters {cp_} tokens equal {same}")
+    res["drills"]["in_proj"] = {"counters": cp_}
+
+    calls[0] = 0
+    step_hit = 3
+
+    def out_proj_hook(o):
+        # decode step s's detect pass makes calls reps*s .. reps*s + reps-1
+        # (no earlier step reruns), its corrective rerun the next reps
+        if o.dim() == 3 and o.shape[0] == SLOTS and o.shape[1] == 1:
+            calls[0] += 1
+            if calls[0] - 1 in (reps * step_hit + rep_hit,
+                                reps * (step_hit + 1) + rep_hit):
+                o = o.clone()
+                o[target, 0, 7] += 1e4
+        return o
+
+    site = "stages/b0_ssm/ssm/out_proj"
+    s_o, r_o, rep_o, st_o = serve(params, cfg, fused, drill_prompts, 8,
+                                  hook=(site, out_proj_hook))
+    by_slot, co = by_slot_of(rep_o, r_o), rep_o["counters"]
+    hit_steps = [i for i, h in enumerate(st_o["hits"]) if any(h)]
+    hit_slots = sorted({i for h in st_o["hits"] for i, x in enumerate(h) if x})
+    same = [s_o.tokens_for(r) for r in r_o] == clean
+    ok = (co["faults_detected"] == 1 and co["faults_corrected"] == 1
+          and by_slot[target]["faults_detected"] == 1
+          and by_slot[target]["corrections_applied"] == 1
+          and by_slot[target]["residuals"] == 0
+          and all(v["faults_detected"] == 0 for sl, v in by_slot.items()
+                  if sl != target)
+          and co["residual_steps"] == 0 and co["faults_unattributed"] == 0
+          and hit_steps == [step_hit] and hit_slots == [target])
+    log(f"  decode fault at {site}, repeat {rep_hit}, slot {target}, decode "
+        f"step {step_hit}: {co['faults_detected']} detected / "
+        f"{co['faults_corrected']} corrected, localizer hit steps "
+        f"{hit_steps} slots {hit_slots}; every later token == clean: {same}")
+    if not (ok and same):
+        fail(f"out_proj drill: {by_slot} counters {co} hits {hit_steps} "
+             f"tokens equal {same}")
+    res["drills"]["out_proj"] = {"counters": co, "hit_steps": hit_steps}
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory {res['peak_memory_gib']:.2f} GiB")
+    report["mamba_serving"] = res
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 8: the campaign
 # --------------------------------------------------------------------------
 
@@ -2612,6 +3137,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
     report = {}
+    phase_s = report["phase_s"] = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
 
     log("phase 1: environment")
     smi = nvidia_smi()
@@ -2626,7 +3159,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.build_all()
-    build_s = time.perf_counter() - t0
+    build_s = phase_s["2"] = time.perf_counter() - t0
     log(f"  built {', '.join(_build.SOURCES)} in {build_s:.1f} s")
     for name, text in _build.PTXAS_LOG.items():
         for line in text.splitlines():
@@ -2638,19 +3171,21 @@ def main(argv=None) -> int:
     from repro_torch.models import cnn
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cfg = cnn.resnet18(1.0)
-    kernels = [check_checksum_reduce(cfg, gen, report),
-               check_abft_matmul(cfg, gen, report)]
+    kernels = timed("3", lambda: [check_checksum_reduce(cfg, gen, report),
+                                  check_abft_matmul(cfg, gen, report)])
     log("phase 3b: the serving path's kernels at SmolLM-360M's shapes")
-    kernels += check_serving_kernels(gen, report)
+    kernels += timed("3b", check_serving_kernels, gen, report)
+    log("phase 3c: the kernels at Mamba2-1.3B's shapes")
+    timed("3c", check_mamba_kernels, gen, report)
 
     log("phase 4: the slice")
-    res, slice_ctx = run_slice(report)
+    res, slice_ctx = timed("4-5b", run_slice, report)
     for k in kernels[:2]:
         k["launches"] = res["per_layer"]["launches"][k["name"]]
         k["launches_from"] = "phase 4: one clean per_layer forward"
 
     log("phase 6: the serving slice")
-    serving, serve_ctx = run_serving(report)
+    serving, serve_ctx = timed("6-7b", run_serving, report)
     # the detect kernel's count is the deferred main path's; the serving
     # abft_matmul row's is the per_layer path's (0 launches when deferred
     # and clean)
@@ -2659,14 +3194,17 @@ def main(argv=None) -> int:
     kernels[2]["launches_from"] = "phase 6: the deferred session's forwards"
     kernels[3]["launches"] = serving["per_layer"]["launches"]
     kernels[3]["launches_from"] = "phase 6: the per_layer session's forwards"
-    run_campaign_phase(report)
-    run_calibrated_plan(report, slice_ctx)
+    timed("8", run_campaign_phase, report)
+    timed("9", run_calibrated_plan, report, slice_ctx)
     del slice_ctx
-    run_driver_phase(report, serve_ctx)
+    timed("10", run_driver_phase, report, serve_ctx)
     del serve_ctx
-    run_training_phase(report)
+    timed("11", run_training_phase, report)
+    timed("12", run_mamba_serving, report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
+    log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phase_s.items()))
     log(f"total {report['seconds']:.1f} s")
     if args.json:
         out = Path(args.json)

@@ -1,6 +1,7 @@
 """Config registry (twin of repro.configs): the 10 architectures by id
-(`get("smollm-360m")`, `get("smollm-360m-smoke")` for the reduced twin).
-The input-shape specs (`shapes.py`) wait for the dry-run."""
+(`get("smollm-360m")`, `get("smollm-360m-smoke")` for the reduced twin),
+and one module per architecture (`configs.mamba2_1p3b.CONFIG`). The
+input-shape specs (`shapes.py`) wait for the dry-run."""
 from .archs import ARCH_BUILDERS, LONG_CONTEXT_OK, reduced
 from .base import ModelConfig
 

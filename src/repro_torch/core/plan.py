@@ -642,7 +642,13 @@ def _block_sites(prefix: str, kind: str, cfg, stack: int,
     if kind == "ffn":
         return [site("ffn/gate", d, cfg.d_ff), site("ffn/up", d, cfg.d_ff),
                 site("ffn/down", cfg.d_ff, d)]
-    if kind in ("moe", "ssm", "rec"):
+    if kind == "ssm":
+        di = cfg.ssm_expand * d
+        n_st = cfg.ssm_state
+        heads = di // cfg.ssm_head_dim
+        return [site("ssm/in_proj", d, 2 * di + 2 * n_st + heads),
+                site("ssm/out_proj", di, d)]
+    if kind in ("moe", "rec"):
         raise NotImplementedError(
             f"protection_spec: {kind!r} blocks are not ported yet "
             "(ROADMAP item 1.7)")

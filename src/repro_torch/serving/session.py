@@ -3,9 +3,11 @@ ProtectedModel path (twin of repro.serving.session).
 
 One decode step runs at a fixed (slots, 1) token shape: the slot scheduler
 admits queued requests into free slots, each admission runs a batch-1
-prefill (bucketed prompt length, the last real row as an argument) whose
-caches are written into the slot of the slot-indexed KV buffers in place,
-and eviction on EOS/max-len frees the slot for the next queued request.
+prefill (bucketed prompt length, the last real row as an argument; the
+prompt's own length for recurrent models) whose caches - KV rows, or an
+ssm block's recurrent state - are written into the slot of the
+slot-indexed buffers in place, and eviction on EOS/max-len frees the slot
+for the next queued request.
 Every forward routes through `ProtectedModel` with `correction="deferred"`:
 a detect-only pass, one host read of every site's flag, and a corrective
 rerun only when one is set.
@@ -179,8 +181,12 @@ class ProtectedSession:
     def _insert(self, small: Dict, slot: int, big: Optional[Dict] = None,
                 stacked: bool = False) -> None:
         """Write a batch-1 prefill's caches into `slot` of the session's
-        caches, in place. Stage caches carry a leading repeats axis; the
-        slot axis sits behind it."""
+        caches, in place, in the buffers' types (as the JAX session's
+        insert casts). Stage caches carry a leading repeats axis; the slot
+        axis sits behind it. A float32 model's ssm conv tail is made
+        bfloat16 and comes back float32 from every forward, so it is
+        rounded where it is inserted before the session's first decode
+        step and kept after it, as in the JAX session (ROADMAP 3.6)."""
         big = self._caches if big is None else big
         for key, b in big.items():
             s = small[key]

@@ -580,6 +580,128 @@ def test_serving_slice_on_card(cuda_device):
     assert tokens["deferred"] == tokens["per_layer"]
 
 
+# Mamba2-1.3B's GEMM sites (in_proj, out_proj and the untied head) at an
+# exact-length prefill of 97 rows: a 97-row chunk with 1-row partial tiles,
+# column chunks of 608, 1024 and 838 (2-wide partial tiles and detect
+# segments at the head, whose last 64-wide block tile holds 40 columns)
+MAMBA_SITES = [(2048, 8512), (4096, 2048), (2048, 50280)]
+
+
+@pytest.mark.parametrize("k,m", MAMBA_SITES)
+def test_kernels_at_mamba_shapes_on_card(cuda_device, k, m):
+    """Both kernels at 97 rows against their plain versions: flags equal
+    and clear, O within one bf16 ulp plus the fp32 summation noise and
+    bitwise equal between the two kernels, the partials allclose and
+    finished into chunk sums on the card; checksums predicting +1e4 at
+    one element flag exactly that element's chunk."""
+    from repro_torch.core.plan import calibrate_tau_factor
+    from repro_torch.core.protected import pick_chunk
+    from repro_torch.core import thresholds as TTH
+    n, bf16 = 97, torch.bfloat16
+    d = torch.as_tensor(normal(n, (n, k))).to(cuda_device, bf16)
+    w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(cuda_device, bf16)
+    rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
+    bm, bn = tops._tile(rb, 256), tops._tile(cb, 256)
+    assert (rb, bm) == (97, 1)
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+    cs = _chunk_checksums(d, w, rb, cb)
+    o, flag, score = TAM.abft_matmul_detect(d, w, *cs, rb, cb, tau_a, tau_b)
+    o_r, flag_r, _ = tref.abft_matmul_detect_ref(d, w, *cs, rb, cb, tau_a,
+                                                  tau_b)
+    o_p, parts = TAM.abft_matmul(d, w, bm, bn)
+    _, parts_r = tref.abft_matmul_ref(d, w, bm, bn)
+    torch.cuda.synchronize()
+    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+    assert torch.equal(o, o_p)
+    absdot = d.float().abs() @ w.float().abs()
+    tol = o_r.float().abs() * 2.0 ** -7 + 2.0 ** -21 * k ** 0.5 * absdot
+    assert bool(((o.float() - o_r.float()).abs() <= tol).all())
+    for a, b, name in zip(parts[:3], parts_r[:3],
+                          ("colsum", "rowsum", "sumsq")):
+        assert a.shape == b.shape, name
+        assert_close(a, b, 1e-5, 1e-3 * k ** 0.5, name)
+    for a, b in zip(tops.chunk_sums_from_partials(parts, rb, cb),
+                    tops.chunk_sums_from_partials(parts_r, rb, cb)):
+        assert_close(a, b, 1e-5, 1e-4 * float(b.abs().max()), "chunk sums")
+    r, c = 41, m - 3
+    p = d.float() @ w.float()
+    p[r, c] += 1e4
+    bad = [*tref.chunk_sums_ref(p, rb, cb)[:3], cs[3]]
+    _, flag_t, _ = TAM.abft_matmul_detect(d, w, *bad, rb, cb, tau_a, tau_b)
+    want = torch.zeros_like(flag_t)
+    want[r // rb, c // cb] = 1
+    assert torch.equal(flag_t, want)
+
+
+def test_ssm_on_card_matches_cpu(cuda_device):
+    """The reduced Mamba2-1.3B (fp32) on the card: the uncached forward,
+    a prefill of 11 (the padding branch) and 3 decode steps agree with the
+    same params on the CPU, logits and states, with the cache types of
+    the CPU run."""
+    import repro_torch.configs as TCF
+    from repro_torch.models import transformer as TM
+    cfg = TCF.get("mamba2-1.3b-smoke").replace(abft=False)
+    p_cpu = TM.init_params(cfg, device="cpu")
+    p_gpu = TM.init_params(cfg, device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 11)))
+    outs = {}
+    for dev, params in (("cpu", p_cpu), ("gpu", p_gpu)):
+        t = toks.to(params["embed"]["table"].device)
+        full = TM.forward_train(params, t, cfg)[0]
+        logits, _, caches = TM.prefill(params, t, cfg, 16)
+        steps = [logits]
+        for i in range(3):
+            nxt = torch.argmax(steps[-1], dim=-1)
+            logits, _, caches = TM.decode_step(params, nxt, caches, 11 + i,
+                                               cfg)
+            steps.append(logits)
+        outs[dev] = (full, steps, caches["stages"]["b0_ssm"])
+    (f_c, s_c, c_c), (f_g, s_g, c_g) = outs["cpu"], outs["gpu"]
+    assert_close(f_g, f_c, 1e-4, 1e-4, "uncached forward")
+    for i, (a, b) in enumerate(zip(s_g, s_c)):
+        assert_close(a, b, 1e-4, 1e-4, f"logits {i}")
+    for k in ("h", "conv"):
+        assert c_g[k].dtype == c_c[k].dtype
+        assert_close(c_g[k], c_c[k], 1e-4, 1e-4, k)
+
+
+def test_ssm_serving_on_card(cuda_device):
+    """A two-layer bf16 Mamba2-1.3B twin served on the card through the
+    kernels: zero clean flags, every protected site of every deferred
+    forward on abft_matmul_detect (5 per forward: 2 sites x 2 repeats +
+    the head) and of every per_layer forward on abft_matmul, exact
+    prefills of odd lengths, and the same tokens in both modes."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("mamba2-1.3b-smoke").replace(dtype="bfloat16")
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=4, seq=32, device=cuda_device))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (5, 9, 13, 7, 3)]
+    tokens = {}
+    for mode in ("deferred", "per_layer"):
+        TAM.LAUNCHES = TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+        sess = ProtectedSession(params, cfg, plan, slots=4, max_len=32,
+                                correction=mode, device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=6) for p in prompts]
+        report = sess.run()
+        c = report["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        assert c["faults_detected"] == 0 and report["completed"] == 5
+        if mode == "deferred":
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (5 * forwards, 0)
+            assert TW.HOST_READS == forwards
+        else:
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (0, 5 * forwards)
+            assert TW.HOST_READS == 5 * forwards
+        tokens[mode] = [sess.tokens_for(r) for r in rids]
+    assert tokens["deferred"] == tokens["per_layer"]
+
+
 @pytest.mark.parametrize("layer", ["matmul", "conv", "transformer_gemm"])
 def test_campaign_cell_per_layer_on_card(cuda_device, layer):
     """64 trials of every registered arm of one layer on the card, in the

@@ -234,7 +234,7 @@ def test_host_reads_per_mode(model, plans):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    for arch in ("mamba2-1.3b-smoke", "kimi-k2-1t-a32b-smoke",
+    for arch in ("recurrentgemma-2b-smoke", "kimi-k2-1t-a32b-smoke",
                  "musicgen-large-smoke"):
         with pytest.raises(NotImplementedError, match="1.7"):
             TM.init_params(TCF.get(arch), device="cpu")
