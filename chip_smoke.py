@@ -33,8 +33,14 @@ Phases, each fatal on failure:
      within one bf16 ulp plus the fp32 summation noise and bitwise equal
      between the two kernels, the partials finished into chunk sums on the
      card, checksums predicting +1e4 at one element flagging exactly its
-     chunk; device ms of both kernels and torch.matmul beside the bound,
-     the detect pass's row segment and the partial tiles used;
+     chunk; device ms of both kernels, their plain versions and
+     torch.matmul beside the bound, the detect pass's row segment and the
+     partial tiles used;
+  3d. the same at RecurrentGemma-2B's GEMM shapes (2560 x 2560: the five
+     rec sites and attn wq/wo; wk/wv 2560 x 256 on one KV head; the gelu
+     FFN's 2560 x 7680 and 7680 x 2560; the tied head 2560 x 256000 read
+     in place as the transposed table) at 8, 97 and 128 rows, with the
+     sums over one forward's 201 launches;
   4. the slice: build_plan + forward_cnn on that ResNet-18 in per_layer
      and deferred mode with the kernels pinned (use_fused_kernel=True):
      zero clean flags, bitwise clean-path contracts, allclose to the
@@ -129,22 +135,31 @@ Phases, each fatal on failure:
      restore, and one element of the head's output corrupted (+1e4, as in
      phase 7) in one step corrected and counted by StepRunner, the loss
      within rtol 1e-4;
-  12. Mamba2-1.3B at full width and depth in bf16 (random params from a
-     seed), served as phase 6 serves SmolLM-360M (8 slots, deferred, the
-     kernels pinned, 16 requests of 16-128 tokens, each prefilled at its
-     own length, 32 new tokens each): every request finishes by length,
-     zero flags, 97 abft_matmul_detect launches and 1 host read per
-     forward; per_layer serves the first 8 requests' 8 tokens alike with
-     97 reads and 97 abft_matmul launches per forward; teacher-forced
-     through the uncached forward, every served token within 0.1 of the
-     unprotected forward's top logit; the unprotected and the kernels-on
+  12. Mamba2-1.3B at full width and its first 8 of 48 layers in bf16
+     (random params from a seed, a plan of its own), served as phase 6
+     serves SmolLM-360M (8 slots, deferred, the kernels pinned, 16
+     requests of 16-128 tokens, each prefilled at its own length, 32 new
+     tokens each): every request finishes by length, zero flags, 17
+     abft_matmul_detect launches and 1 host read per forward; per_layer
+     serves the first 8 requests' 8 tokens alike with 17 reads and 17
+     abft_matmul launches per forward; teacher-forced through the uncached
+     forward, every served token's bf16 margin below the unprotected
+     forward's top logit within twice the routes' logit gap plus 0.1, and
+     a float32 twin's within 0.1; the unprotected and the kernels-on
      sessions timed in turns (median decode-step ms, TTFT p50) and one
      decode step of each profiled; drills: +1e4 at the head on slot 3 in
      every decode step, +1e3 at one repeat's in_proj in every prefill, and
      +1e4 at one repeat's out_proj on slot 3 in one mid-stream decode step
      after which every token equals the clean run's (the corrective rerun
      starts from the step's input state); init and build_plan seconds and
-     peak device memory.
+     peak device memory;
+  13. RecurrentGemma-2B at full width and depth in bf16 (26 layers: 18
+     RG-LRU blocks, 8 sliding-window attention blocks on one KV head, 26
+     gelu FFNs, the tied 256,000-token head; random params from a seed,
+     the table scaled by 1/16), served and checked as phase 12 with 201
+     launches and reads per forward; the prefill drill at one repeat's
+     attn_swa wk (the KV-cache write), the decode drill at one repeat's
+     rec in_x (it feeds both the conv tail and h).
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -220,9 +235,32 @@ TRAIN_LAYERS = 8
 # row counts phase 3c holds them at: a decode step's slots, an odd exact
 # prefill (the scheduler does not bucket recurrent models) and 128
 MAMBA_ARCH = "mamba2-1.3b"
-MAMBA_SITES = (("in_proj", 2048, 8512, 48), ("out_proj", 4096, 2048, 48),
-               ("head", 2048, 50280, 1))
+MAMBA_SITES = (("in_proj", 2048, 8512, False, 48),
+               ("out_proj", 4096, 2048, False, 48),
+               ("head", 2048, 50280, False, 1))
 MAMBA_ROWS = (SLOTS, 97, 128)
+# depth of phase 12's Mamba2-1.3B: its first layers at full width (cut
+# from 48 to make room for phase 13); phase 3c keeps the full-depth counts
+MAMBA_LAYERS = 8
+# the RG-LRU slice: RecurrentGemma-2B at full width and depth, bf16, served
+# as phase 12 serves Mamba2-1.3B; its distinct GEMM shapes with their
+# launches per forward (26 layers: 18 rec blocks of in_x, in_gate, gate_a,
+# gate_i and out beside 8 attn_swa blocks' wq and wo at 2560 x 2560, their
+# wk and wv on one KV head of 256, 26 gelu FFNs, the tied head read in
+# place) and the row counts phase 3d holds them at
+RG_ARCH = "recurrentgemma-2b"
+RG_SITES = (("rec/*, wq/wo", 2560, 2560, False, 106),
+            ("wk/wv", 2560, 256, False, 16),
+            ("gate/up", 2560, 7680, False, 52),
+            ("down", 7680, 2560, False, 26),
+            ("head", 2560, 256000, True, 1))
+RG_ROWS = (SLOTS, 97, 128)
+# the tied table of phase 13's random RecurrentGemma-2B is scaled by this:
+# at its drawn scale the embedding (times sqrt(d_model)) can outweigh the
+# blocks' outputs, and greedy decoding then echoes the last prompt token
+# whatever the recurrent state holds (as the reduced model does on the
+# CPU); scaled, the served tokens depend on the state
+RG_TABLE_SCALE = 1 / 16
 
 
 def log(*a):
@@ -876,19 +914,23 @@ def check_serving_kernels(gen, report):
 
 
 # --------------------------------------------------------------------------
-# phase 3c: the kernels at Mamba2-1.3B's shapes (bf16)
+# phases 3c and 3d: the kernels at Mamba2-1.3B's and RecurrentGemma-2B's
+# shapes (bf16)
 # --------------------------------------------------------------------------
 
-def check_mamba_kernels(gen, report):
-    """abft_matmul_detect and abft_matmul (bf16) at Mamba2-1.3B's three
-    GEMM shapes (MAMBA_SITES) and at a decode step's 8 rows, an odd exact
-    prefill (97) and 128 rows: flags equal to the plain version's and
-    clear, O within one bf16 ulp plus the fp32 summation noise of the
-    plain version and bitwise equal between the two kernels, the partials
+def check_model_kernels(gen, report, key: str, sites, row_counts):
+    """abft_matmul_detect and abft_matmul (bf16) at one model's distinct
+    GEMM shapes (`sites`: label, K, M, W read transposed, launches per
+    forward) and at each of `row_counts` (a decode step's 8 rows, an odd
+    exact prefill, 128): flags equal to the plain version's and clear, O
+    within one bf16 ulp plus the fp32 summation noise of the plain
+    version and bitwise equal between the two kernels, the partials
     allclose and finished into chunk sums on the card, and checksums
     predicting +1e4 at one element flag exactly its chunk. Per shape the
-    device ms of both kernels and of torch.matmul beside the bound, the
-    detect pass's row segment and the partial tiles."""
+    device ms of both kernels, their plain versions and torch.matmul
+    beside the bound, the detect pass's row segment and the partial
+    tiles; per row count the sums over one forward's launches. Written to
+    report[key]."""
     import torch
     from repro_torch import fp32_ieee
     from repro_torch.core.plan import calibrate_tau_factor
@@ -899,13 +941,17 @@ def check_mamba_kernels(gen, report):
     from repro_torch.kernels.ref import (abft_matmul_detect_ref,
                                          abft_matmul_ref, chunk_sums_ref)
     bf16 = torch.bfloat16
+    launches = sum(site[-1] for site in sites)
     rows, tot = [], {}
     with torch.no_grad(), fp32_ieee():
-        for n in MAMBA_ROWS:
-            for label, k, m, count in MAMBA_SITES:
+        for n in row_counts:
+            for label, k, m, transposed, count in sites:
                 d = torch.randn((n, k), generator=gen, device="cuda").to(bf16)
-                w = (torch.randn((k, m), generator=gen, device="cuda")
-                     * k ** -0.5).to(bf16)
+                store = (torch.randn((m, k) if transposed else (k, m),
+                                     generator=gen, device="cuda")
+                         * k ** -0.5).to(bf16)
+                view = (lambda t: t.T) if transposed else (lambda t: t)
+                w = view(store)
                 rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
                 bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
                 tiling = AM.kernel_tiling(n, k, m, bf16, cb)
@@ -966,7 +1012,7 @@ def check_mamba_kernels(gen, report):
                          f"flags {flag_t.nonzero().tolist()}")
                 pbm, pbn = min(bm, tiling.tm), min(bn, tiling.tn)
                 row = {"site": label, "shape": [n, k, m], "chunks": [rb, cb],
-                       "per_forward": count,
+                       "w_transposed": transposed, "per_forward": count,
                        "tiling": {**tiling._asdict(),
                                   "blocks": tiling.tiles(n, m)
                                   * tiling.splits},
@@ -974,13 +1020,19 @@ def check_mamba_kernels(gen, report):
                        "clean_score": float(score.max()),
                        "max_abs_err": {"o": max_err(o, o_r), "score": e_s,
                                        "partials": e_p}}
-                args = copies([d, w] + cs)
+                args = copies([d, store] + cs)
                 row["ms"] = time_device(lambda a, b, *c: AM.abft_matmul_detect(
-                    a, b, *c, rb, cb, ta, tb), args)
+                    a, view(b), *c, rb, cb, ta, tb), args)
                 row["abft_matmul_ms"] = time_device(
-                    lambda a, b, *c: AM.abft_matmul(a, b, bm, bn), args)
+                    lambda a, b, *c: AM.abft_matmul(a, view(b), bm, bn), args)
                 row["library_ms"] = time_device(
-                    lambda a, b, *c: torch.matmul(a, b), args)
+                    lambda a, b, *c: torch.matmul(a, view(b)), args)
+                row["plain_ms"] = time_device(
+                    lambda a, b, *c: abft_matmul_detect_ref(
+                        a, view(b), *c, rb, cb, ta, tb), args)
+                row["abft_matmul_plain_ms"] = time_device(
+                    lambda a, b, *c: abft_matmul_ref(a, view(b), bm, bn),
+                    args)
                 del args
                 nb, mb = n // rb, m // cb
                 nbytes = 2.0 * (n * k + k * m + n * m) + 4.0 * 6 * nb * mb
@@ -994,33 +1046,49 @@ def check_mamba_kernels(gen, report):
                     bound_ms(mm_bytes, 2.0 * n * k * m + 4.0 * n * m,
                              BF16_FLOPS_PER_S)
                 rows.append(row)
-                t = tot.setdefault(n, {"ms": 0.0, "abft_matmul_ms": 0.0,
-                                       "library_ms": 0.0, "bytes": 0.0,
-                                       "flops": 0.0})
-                for key in ("ms", "abft_matmul_ms", "library_ms"):
-                    t[key] += count * row[key]
+                times = ("ms", "abft_matmul_ms", "library_ms", "plain_ms",
+                         "abft_matmul_plain_ms")
+                t = tot.setdefault(n, dict.fromkeys(times + ("bytes",
+                                                             "flops"), 0.0))
+                for key_ in times:
+                    t[key_] += count * row[key_]
                 t["bytes"] += count * nbytes
                 t["flops"] += count * flops
                 log(f"  {what} chunks ({rb},{cb}) x{count}: tile "
                     f"{tiling.tm}x{tiling.tn}, {tiling.splits} splits, seg "
                     f"{tiling.seg}, partial tiles ({bm},{bn}) from the "
                     f"kernel's ({pbm},{pbn}); detect ms {row['ms']:.4f} "
-                    f"abft_matmul {row['abft_matmul_ms']:.4f} torch.matmul "
+                    f"(plain {row['plain_ms']:.4f}) abft_matmul "
+                    f"{row['abft_matmul_ms']:.4f} (plain "
+                    f"{row['abft_matmul_plain_ms']:.4f}) torch.matmul "
                     f"{row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
                     f"({row['bound_by']}; abft_matmul's "
                     f"{row['abft_matmul_bound_ms']:.4f}); O err "
-                    f"{max_err(o, o_r):.3g}, clean score "
+                    f"{row['max_abs_err']['o']:.3g}, clean score "
                     f"{float(score.max()):.3g}; +1e4 flagged chunk "
                     f"{[r_ // rb, c_ // cb]}")
     for n, t in tot.items():
         t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"],
                                                 BF16_FLOPS_PER_S)
-        log(f"  per forward at {n} rows (97 launches): detect ms "
-            f"{t['ms']:.4f} abft_matmul {t['abft_matmul_ms']:.4f} "
-            f"torch.matmul {t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
+        log(f"  per forward at {n} rows ({launches} launches): detect ms "
+            f"{t['ms']:.4f} (plain {t['plain_ms']:.4f}) abft_matmul "
+            f"{t['abft_matmul_ms']:.4f} (plain {t['abft_matmul_plain_ms']:.4f})"
+            f" torch.matmul {t['library_ms']:.4f} bound {t['bound_ms']:.4f} "
             f"({t['bound_by']}), {t['bytes'] / 1e6:.1f} MB")
-    report["mamba_kernels"] = {"per_shape": rows, "per_forward": tot}
+    report[key] = {"per_shape": rows, "per_forward": tot,
+                   "launches_per_forward": launches}
     return tot
+
+
+def check_mamba_kernels(gen, report):
+    """Phase 3c: the bf16 kernels at Mamba2-1.3B's full-depth shapes."""
+    return check_model_kernels(gen, report, "mamba_kernels", MAMBA_SITES,
+                               MAMBA_ROWS)
+
+
+def check_rg_kernels(gen, report):
+    """Phase 3d: the bf16 kernels at RecurrentGemma-2B's shapes."""
+    return check_model_kernels(gen, report, "rg_kernels", RG_SITES, RG_ROWS)
 
 
 # --------------------------------------------------------------------------
@@ -2753,25 +2821,30 @@ def run_training_phase(report) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phase 12: Mamba2-1.3B serving
+# phases 12 and 13: serving a recurrent model (Mamba2-1.3B, RecurrentGemma-2B)
 # --------------------------------------------------------------------------
 
-def run_mamba_serving(report) -> dict:
-    """Phase 12: Mamba2-1.3B at full width and depth in bf16 (random params
-    from a seed) served as phase 6 serves SmolLM-360M: deferred, the
-    kernels pinned, 8 slots, 16 requests (prompts of 16-128 tokens, each
-    prefilled at its own length), 32 new tokens each. Checks: every
-    request finishes by length, zero flags, no slot hit, 97 detect
-    launches and 1 host read per forward; per_layer serves the first 8
-    requests' 8 tokens alike with 97 reads and 97 abft_matmul launches per
-    forward; teacher-forced through the uncached forward, every served
-    token within DELTA of the unprotected forward's top logit. Timing:
-    the unprotected and the kernels-on sessions in turns; a profile of
-    one decode step of each. Drills: +1e4 at the head on slot 3 in every
-    decode step, +1e3 in every prefill at one repeat's in_proj, and +1e4
-    at one repeat's out_proj on slot 3 in one mid-stream decode step
-    (the corrective rerun must start from the step's input state: every
-    later token equals the clean run's)."""
+def run_recurrent_serving(report, key: str, arch: str, layers: int,
+                          n_sites: int, prefill_site: str, decode_site: str,
+                          table_scale: float = 1.0) -> dict:
+    """`arch` at full width and `layers` layers (0: its full depth) in bf16
+    (random params from a seed; the embedding table times `table_scale`)
+    served as phase 6 serves SmolLM-360M: deferred, the kernels pinned, 8
+    slots, 16 requests (prompts of 16-128 tokens, each prefilled at its
+    own length), 32 new tokens each. Checks: every request finishes by
+    length, zero flags, no slot hit, `n_sites` detect launches and 1 host
+    read per forward; per_layer serves the first 8 requests' 8 tokens
+    alike with `n_sites` reads and abft_matmul launches per forward;
+    teacher-forced through the uncached forward, every served token's bf16
+    margin below the unprotected forward's top logit within twice the
+    routes' logit gap plus DELTA, and a float32 twin of the same weights
+    within DELTA. Timing: the unprotected and the kernels-on sessions in
+    turns; a profile of one decode step of each. Drills: +1e4 at the head
+    on slot 3 in every decode step, +1e3 in every prefill at one repeat's
+    `prefill_site`, and +1e4 at one repeat's `decode_site` on slot 3 in
+    one mid-stream decode step (the corrective rerun must start from the
+    step's input state: every later token equals the clean run's).
+    Written to report[key]."""
     import torch
     from repro_torch import configs, core
     from repro_torch._tree import tree_map
@@ -2780,12 +2853,15 @@ def run_mamba_serving(report) -> dict:
     from repro_torch.models import transformer as M
     from repro_torch.serving import ProtectedSession
 
-    log("phase 12: Mamba2-1.3B serving")
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get(MAMBA_ARCH)
+    cfg = configs.get(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
     params = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
                            device=DEVICE)
+    if table_scale != 1.0:
+        params["embed"]["table"].mul_(table_scale)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2796,12 +2872,15 @@ def run_mamba_serving(report) -> dict:
     plan.validate(params)
     fused = core.force_fused_matmul(plan)
     reps = cfg.stages()[1]
-    n_sites = reps * 2 + 1
-    if len(fused) != 3:
-        fail(f"plan has {len(fused)} entries, want 3")
-    log(f"  {MAMBA_ARCH}: {M.count_params(cfg) / 1e6:.1f} M params bf16, "
-        f"{n_sites} protected GEMMs per forward; init {init_s:.1f} s, "
-        f"build_plan {plan_s:.1f} s")
+    calls = sum(reps if e.stack else 1 for e in fused.entries.values())
+    if calls != n_sites:
+        fail(f"the plan's {len(fused)} entries make {calls} protected GEMMs "
+             f"per forward, want {n_sites}")
+    head = "embed/table" if cfg.tie_embeddings else "embed/head"
+    log(f"  {cfg.name}: {cfg.num_layers} layers, "
+        f"{M.count_params(cfg) / 1e6:.1f} M params bf16, {n_sites} "
+        f"protected GEMMs per forward; init {init_s:.1f} s, build_plan "
+        f"{plan_s:.1f} s")
     res = {"init_s": init_s, "build_plan_s": plan_s}
     prompts = serve_prompts(cfg, N_REQ, SEED + 3)
 
@@ -2814,6 +2893,8 @@ def run_mamba_serving(report) -> dict:
                 "abft_matmul": AM.LAUNCHES}
     reads = workflow.HOST_READS
     tokens = {r: sess.tokens_for(r) for r in rids}
+    distinct = [len(set(t)) for t in tokens.values()]
+    log(f"  distinct tokens per request: {distinct}")
     reasons = [r["finish_reason"] for r in rep["requests"]]
     log(f"  deferred, kernels on: {rep['completed']} requests (prompts "
         f"{sorted(len(p) for p in prompts)}), {c['prefills']} prefills + "
@@ -2830,7 +2911,8 @@ def run_mamba_serving(report) -> dict:
         fail(f"{forwards} clean forwards launched {launches} with {reads} host "
              f"reads; want {n_sites} detect launches and 1 read each")
     res["deferred"] = {"counters": c, "launches": launches,
-                       "host_reads": reads, "forwards": forwards}
+                       "host_reads": reads, "forwards": forwards,
+                       "distinct_tokens": distinct}
 
     # -- per_layer serves the same tokens ------------------------------------
     AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
@@ -2851,7 +2933,7 @@ def run_mamba_serving(report) -> dict:
 
     # -- teacher-forced through the uncached forward -------------------------
     # In bf16 the two routes of one uncached forward (the kernels, cuBLAS)
-    # differ by rounding only, and 48 layers carry that to logit gaps far
+    # differ by rounding only, and deep models carry that to logit gaps far
     # above DELTA: the gap is this model's noise floor. A served token was
     # the top of logits that lie within about that gap of the unprotected
     # ones, so its margin below their top is held to twice the gap (plus
@@ -2942,7 +3024,7 @@ def run_mamba_serving(report) -> dict:
         return o
 
     s_d, r_d, rep_d, st_d = serve(params, cfg, fused, drill_prompts, 8,
-                                  hook=("embed/head", head_hook))
+                                  hook=(head, head_hook))
     by_slot, cd = by_slot_of(rep_d, r_d), rep_d["counters"]
     hit_slots = sorted({i for h in st_d["hits"] for i, x in enumerate(h) if x})
     same = [s_d.tokens_for(r) for r in r_d] == clean
@@ -2953,7 +3035,7 @@ def run_mamba_serving(report) -> dict:
                   if sl != target)
           and cd["faults_unattributed"] == 0 and cd["residual_steps"] == 0
           and hit_slots == [target])
-    log(f"  decode fault at embed/head, slot {target}: {cd['faults_detected']} "
+    log(f"  decode fault at {head}, slot {target}: {cd['faults_detected']} "
         f"detected / {cd['faults_corrected']} corrected over "
         f"{cd['decode_steps']} steps, localizer hit slots {hit_slots}, "
         f"residual steps {cd['residual_steps']}; tokens == clean: {same}")
@@ -2963,18 +3045,18 @@ def run_mamba_serving(report) -> dict:
 
     calls = [0]
 
-    def in_proj_hook(o):
+    def prefill_hook(o):
         # every prefill pass calls the site once per repeat, in order
         if o.shape[0] == 1 and o.shape[1] > 1:
             calls[0] += 1
             if (calls[0] - 1) % reps == rep_hit:
                 o = o.clone()
-                o[0, 5, 17] += 1e3
+                o[0, 5, 17 % o.shape[-1]] += 1e3
         return o
 
-    site = "stages/b0_ssm/ssm/in_proj"
+    site = prefill_site
     s_p, r_p, rep_p, _ = serve(params, cfg, fused, drill_prompts, 8,
-                               hook=(site, in_proj_hook))
+                               hook=(site, prefill_hook))
     recs = {r["id"]: r for r in rep_p["requests"]}
     cp_ = rep_p["counters"]
     same = [s_p.tokens_for(r) for r in r_p] == clean
@@ -2988,13 +3070,13 @@ def run_mamba_serving(report) -> dict:
         f"{cp_['faults_corrected']}/{cp_['faults_detected']}, residuals "
         f"{[recs[r]['residuals'] for r in r_p]}; tokens == clean: {same}")
     if not (ok and same):
-        fail(f"in_proj drill: {recs} counters {cp_} tokens equal {same}")
-    res["drills"]["in_proj"] = {"counters": cp_}
+        fail(f"{site} drill: {recs} counters {cp_} tokens equal {same}")
+    res["drills"]["prefill"] = {"site": site, "counters": cp_}
 
     calls[0] = 0
     step_hit = 3
 
-    def out_proj_hook(o):
+    def decode_hook(o):
         # decode step s's detect pass makes calls reps*s .. reps*s + reps-1
         # (no earlier step reruns), its corrective rerun the next reps
         if o.dim() == 3 and o.shape[0] == SLOTS and o.shape[1] == 1:
@@ -3005,9 +3087,9 @@ def run_mamba_serving(report) -> dict:
                 o[target, 0, 7] += 1e4
         return o
 
-    site = "stages/b0_ssm/ssm/out_proj"
+    site = decode_site
     s_o, r_o, rep_o, st_o = serve(params, cfg, fused, drill_prompts, 8,
-                                  hook=(site, out_proj_hook))
+                                  hook=(site, decode_hook))
     by_slot, co = by_slot_of(rep_o, r_o), rep_o["counters"]
     hit_steps = [i for i, h in enumerate(st_o["hits"]) if any(h)]
     hit_slots = sorted({i for h in st_o["hits"] for i, x in enumerate(h) if x})
@@ -3025,13 +3107,39 @@ def run_mamba_serving(report) -> dict:
         f"{co['faults_corrected']} corrected, localizer hit steps "
         f"{hit_steps} slots {hit_slots}; every later token == clean: {same}")
     if not (ok and same):
-        fail(f"out_proj drill: {by_slot} counters {co} hits {hit_steps} "
+        fail(f"{site} drill: {by_slot} counters {co} hits {hit_steps} "
              f"tokens equal {same}")
-    res["drills"]["out_proj"] = {"counters": co, "hit_steps": hit_steps}
+    res["drills"]["decode"] = {"site": site, "counters": co,
+                               "hit_steps": hit_steps}
     res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"  peak device memory {res['peak_memory_gib']:.2f} GiB")
-    report["mamba_serving"] = res
+    report[key] = res
     return res
+
+
+def run_mamba_serving(report) -> dict:
+    """Phase 12: Mamba2-1.3B at full width and its first MAMBA_LAYERS
+    layers (a plan of its own): 2 sites a layer and the untied head per
+    forward; the drills at in_proj (prefill) and out_proj (decode)."""
+    log(f"phase 12: Mamba2-1.3B serving ({MAMBA_LAYERS} layers)")
+    return run_recurrent_serving(
+        report, "mamba_serving", MAMBA_ARCH, MAMBA_LAYERS,
+        2 * MAMBA_LAYERS + 1, "stages/b0_ssm/ssm/in_proj",
+        "stages/b0_ssm/ssm/out_proj")
+
+
+def run_rg_serving(report) -> dict:
+    """Phase 13: RecurrentGemma-2B at full width and depth, 201 sites per
+    forward (RG_SITES); the prefill drill at one repeat's attn_swa wk (the
+    KV-cache write), the decode drill at one repeat's rec in_x (it feeds
+    both the conv tail and h)."""
+    log("phase 13: RecurrentGemma-2B serving")
+    return run_recurrent_serving(
+        report, "rg_serving", RG_ARCH, 0,
+        sum(site[-1] for site in RG_SITES), "stages/b4_attn_swa/attn/wk",
+        "stages/b0_rec/rec/in_x", RG_TABLE_SCALE)
+
+
 
 
 # --------------------------------------------------------------------------
@@ -3177,6 +3285,8 @@ def main(argv=None) -> int:
     kernels += timed("3b", check_serving_kernels, gen, report)
     log("phase 3c: the kernels at Mamba2-1.3B's shapes")
     timed("3c", check_mamba_kernels, gen, report)
+    log("phase 3d: the kernels at RecurrentGemma-2B's shapes")
+    timed("3d", check_rg_kernels, gen, report)
 
     log("phase 4: the slice")
     res, slice_ctx = timed("4-5b", run_slice, report)
@@ -3201,6 +3311,7 @@ def main(argv=None) -> int:
     del serve_ctx
     timed("11", run_training_phase, report)
     timed("12", run_mamba_serving, report)
+    timed("13", run_rg_serving, report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"

@@ -648,7 +648,12 @@ def _block_sites(prefix: str, kind: str, cfg, stack: int,
         heads = di // cfg.ssm_head_dim
         return [site("ssm/in_proj", d, 2 * di + 2 * n_st + heads),
                 site("ssm/out_proj", di, d)]
-    if kind in ("moe", "rec"):
+    if kind == "rec":
+        w = cfg.lru_width or d
+        return [site("rec/in_x", d, w), site("rec/in_gate", d, w),
+                site("rec/gate_a", w, w), site("rec/gate_i", w, w),
+                site("rec/out", w, d)]
+    if kind == "moe":
         raise NotImplementedError(
             f"protection_spec: {kind!r} blocks are not ported yet "
             "(ROADMAP item 1.7)")

@@ -1,7 +1,7 @@
 """Decoder-LM assembler (twin of repro.models.transformer: attention,
-dense-FFN and Mamba-2 SSD blocks): init, caches, the protected forward,
-the training forward (autograd through the protected route), prefill and
-decode, and the ProtectedModel apply_fns.
+dense-FFN, Mamba-2 SSD and RG-LRU blocks): init, caches, the protected
+forward, the training forward (autograd through the protected route),
+prefill and decode, and the ProtectedModel apply_fns.
 
 Params are nested dicts of tensors in the JAX package's layouts. Stage
 params keep JAX's leading repeats axis; the `lax.scan` over stages becomes
@@ -9,9 +9,9 @@ a Python loop over repeats that indexes `t[r]` (a view). The report merges
 every repeat's carry into one "stages" section, as the scan carry does,
 and each repeat's stacked plan entries are swapped for the view carrying
 that repeat's checksum slice (`_stage_overrides`), so serving pays no
-per-call weight encode. An ssm block's cache is its recurrent state,
-which each step replaces whole; attention writes one row of its KV
-buffer. Blocks of kind moe and rec are not ported yet (ROADMAP item 1.7).
+per-call weight encode. An ssm or rec block's cache is its recurrent
+state, which each step replaces whole; attention writes one row of its KV
+buffer. Blocks of kind moe are not ported yet (ROADMAP item 1.7).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from ..layers.attention import apply_attention, init_attention, init_cache
 from ..layers.embedding import embed, init_embedding, logits_head
 from ..layers.ffn import apply_ffn, init_ffn
 from ..layers.norms import rms_norm, softcap
+from ..layers.rglru import apply_rglru, init_rglru, init_rglru_state
 from ..layers.ssm import apply_ssm, init_ssm, init_ssm_state
 
 F32 = torch.float32
@@ -79,7 +80,9 @@ def _init_block(kind: str, gen, cfg, device) -> Dict:
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, dt, device)
     elif kind == "ssm":
         p["ssm"] = init_ssm(gen, cfg, dt, device)
-    elif kind in ("moe", "rec"):
+    elif kind == "rec":
+        p["rec"] = init_rglru(gen, cfg, dt, device)
+    elif kind == "moe":
         raise _unported(kind)
     else:
         raise ValueError(kind)
@@ -155,12 +158,12 @@ def train_state_from_numpy(np_state, device: DeviceLike = None) -> Dict:
 def _init_block_cache(kind: str, cfg, batch: int, max_len: int, dt, device):
     if kind in ATTN_KINDS:
         return init_cache(cfg, kind, batch, max_len, dt, device)
+    # ssm and rec: the reference's types, not the model's: h float32, the
+    # conv tail bfloat16
     if kind == "ssm":
-        # the reference's types, not the model's: h float32, the conv
-        # tail bfloat16
         return init_ssm_state(cfg, batch, device=device)
     if kind == "rec":
-        raise _unported(kind)
+        return init_rglru_state(cfg, batch, device=device)
     return {}
 
 
@@ -204,14 +207,15 @@ def _apply_block(kind: str, bp: Dict, x, cfg, abft, positions,
     elif kind == "ffn":
         with path_scope("ffn"):
             y, rep = apply_ffn(bp["ffn"], h, abft, cfg.act)
-    elif kind == "ssm":
-        with path_scope("ssm"):
-            y, rep, new = apply_ssm(bp["ssm"], h, cfg, abft, cache)
+    elif kind in ("ssm", "rec"):
+        apply = apply_ssm if kind == "ssm" else apply_rglru
+        with path_scope(kind):
+            y, rep, new = apply(bp[kind], h, cfg, abft, cache)
         if cache is not None:
             # the forward's own copy of the state, replaced whole
             for k, t in new.items():
                 cache[k].copy_(t)
-    elif kind in ("moe", "rec"):
+    elif kind == "moe":
         raise _unported(kind)
     else:
         raise ValueError(kind)
@@ -241,13 +245,13 @@ def _apply_blocks(pattern, blocks, x, cfg, abft, positions, caches=None,
 
 def _own_caches(caches, cfg):
     """The forward's own copy of the caches, which its blocks update in
-    place. An ssm block's conv tail takes the type that its concatenation
-    with the block's input gives (as the JAX package's does): a float32
-    model's tail, made bfloat16, comes back float32."""
+    place. An ssm or rec block's conv tail takes the type that its
+    concatenation with the block's input gives (as the JAX package's
+    does): a float32 model's tail, made bfloat16, comes back float32."""
     dt = _dtype(cfg)
 
     def leaf(name, key, t):
-        if name.endswith("_ssm") and key == "conv":
+        if name.endswith(("_ssm", "_rec")) and key == "conv":
             return t.to(torch.promote_types(t.dtype, dt), copy=True)
         return t.clone()
 
@@ -298,7 +302,7 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     The caches are copied once and updated in place in the copy, so the
     caller's caches are left as they were (the JAX package's functional
     semantics): a deferred corrective rerun starts from the step's input
-    state, the ssm's recurrence included."""
+    state, the ssm's and the rec's recurrences included."""
     abft = abft_config(cfg)
     mode = ambient_mode()
     pattern, reps, rem = cfg.stages()

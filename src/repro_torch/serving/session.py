@@ -5,7 +5,7 @@ One decode step runs at a fixed (slots, 1) token shape: the slot scheduler
 admits queued requests into free slots, each admission runs a batch-1
 prefill (bucketed prompt length, the last real row as an argument; the
 prompt's own length for recurrent models) whose caches - KV rows, or an
-ssm block's recurrent state - are written into the slot of the
+ssm or rec block's recurrent state - are written into the slot of the
 slot-indexed buffers in place, and eviction on EOS/max-len frees the slot
 for the next queued request.
 Every forward routes through `ProtectedModel` with `correction="deferred"`:
@@ -183,7 +183,7 @@ class ProtectedSession:
         """Write a batch-1 prefill's caches into `slot` of the session's
         caches, in place, in the buffers' types (as the JAX session's
         insert casts). Stage caches carry a leading repeats axis; the slot
-        axis sits behind it. A float32 model's ssm conv tail is made
+        axis sits behind it. A float32 model's ssm or rec conv tail is made
         bfloat16 and comes back float32 from every forward, so it is
         rounded where it is inserted before the session's first decode
         step and kept after it, as in the JAX session (ROADMAP 3.6)."""

@@ -702,6 +702,74 @@ def test_ssm_serving_on_card(cuda_device):
     assert tokens["deferred"] == tokens["per_layer"]
 
 
+def test_rglru_on_card_matches_cpu(cuda_device):
+    """One RG-LRU block of the reduced RecurrentGemma-2B (fp32) on the
+    card: the scan from a carried state (a prefill of 11) and the one-step
+    decode update agree with the same params and inputs on the CPU,
+    output and new state, in the CPU run's types."""
+    import repro_torch.configs as TCF
+    from repro_torch.layers import rglru as TR
+    cfg = TCF.get("recurrentgemma-2b-smoke")
+    p_cpu = TR.init_rglru(torch.Generator().manual_seed(0), cfg,
+                          torch.float32, "cpu")
+    p_gpu = {k: ({kk: t.to(cuda_device) for kk, t in v.items()}
+                 if isinstance(v, dict) else v.to(cuda_device))
+             for k, v in p_cpu.items()}
+    state = TR.init_rglru_state(cfg, 2, "cpu")
+    state["h"] = torch.as_tensor(normal(3, (2, cfg.lru_width), 0.3))
+    for s in (11, 1):
+        x = torch.as_tensor(normal(s, (2, s, cfg.d_model)))
+        oc, _, nc = TR.apply_rglru(p_cpu, x, cfg, None, state)
+        og, _, ng = TR.apply_rglru(
+            p_gpu, x.to(cuda_device), cfg, None,
+            {k: t.to(cuda_device) for k, t in state.items()})
+        assert_close(og, oc, 1e-4, 1e-4, f"out at {s} rows")
+        for k in ("h", "conv"):
+            assert ng[k].dtype == nc[k].dtype, k
+            assert_close(ng[k], nc[k], 1e-4, 1e-4, f"{k} at {s} rows")
+        state = nc
+
+
+def test_rglru_serving_on_card(cuda_device):
+    """The reduced RecurrentGemma-2B at 5 layers in bf16 served on the
+    card through the kernels: zero clean flags, every protected site of
+    every deferred forward on abft_matmul_detect (40 per forward: 4 rec
+    blocks x 5, one attn_swa x 4, 5 ffns x 3, the tied head) and of every
+    per_layer forward on abft_matmul, exact prefills past the window of 8,
+    and the same tokens in both modes."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("recurrentgemma-2b-smoke").replace(dtype="bfloat16",
+                                                      num_layers=5)
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=4, seq=32, device=cuda_device))
+    assert len(plan) == 40
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in (10, 13, 9, 17, 3)]
+    tokens = {}
+    for mode in ("deferred", "per_layer"):
+        TAM.LAUNCHES = TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+        sess = ProtectedSession(params, cfg, plan, slots=4, max_len=32,
+                                correction=mode, device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=6) for p in prompts]
+        report = sess.run()
+        c = report["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        assert c["faults_detected"] == 0 and report["completed"] == 5
+        if mode == "deferred":
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (40 * forwards, 0)
+            assert TW.HOST_READS == forwards
+        else:
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (0, 40 * forwards)
+            assert TW.HOST_READS == 40 * forwards
+        tokens[mode] = [sess.tokens_for(r) for r in rids]
+    assert tokens["deferred"] == tokens["per_layer"]
+
+
 @pytest.mark.parametrize("layer", ["matmul", "conv", "transformer_gemm"])
 def test_campaign_cell_per_layer_on_card(cuda_device, layer):
     """64 trials of every registered arm of one layer on the card, in the

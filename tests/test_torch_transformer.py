@@ -234,9 +234,8 @@ def test_host_reads_per_mode(model, plans):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    for arch in ("recurrentgemma-2b-smoke", "kimi-k2-1t-a32b-smoke",
-                 "musicgen-large-smoke"):
+    for arch in ("kimi-k2-1t-a32b-smoke", "musicgen-large-smoke"):
         with pytest.raises(NotImplementedError, match="1.7"):
             TM.init_params(TCF.get(arch), device="cpu")
     with pytest.raises(NotImplementedError, match="1.7"):
-        tcore.protection_spec(TCF.get("recurrentgemma-2b-smoke"))
+        tcore.protection_spec(TCF.get("kimi-k2-1t-a32b-smoke"))
