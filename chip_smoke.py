@@ -41,6 +41,11 @@ Phases, each fatal on failure:
      FFN's 2560 x 7680 and 7680 x 2560; the tied head 2560 x 256000 read
      in place as the transposed table) at 8, 97 and 128 rows, with the
      sums over one forward's 201 launches;
+  3e. the same at MusicGen-large's GEMM shapes (attention 2048 x 2048 on
+     32 heads of 64, the gelu FFN's 2048 x 8192 and 8192 x 2048, the
+     untied 4-codebook head 2048 x 8192) at a decode step's 8 rows and
+     the prefill buckets' 16, 32, 64 and 128, with the sums over one
+     forward's 337 launches;
   4. the slice: build_plan + forward_cnn on that ResNet-18 in per_layer
      and deferred mode with the kernels pinned (use_fused_kernel=True):
      zero clean flags, bitwise clean-path contracts, allclose to the
@@ -81,14 +86,15 @@ Phases, each fatal on failure:
      between two steps is repaired in place (verdict `repaired`, no
      restore, the leaf bitwise clean), two corrupted blocks are restored;
      tokens equal to the clean run's; the audit's and the repair's ms;
-  8. the campaign on the card: matmul and conv, scheme full, every
-     registered fault arm, 1000 trials per cell (the paper's grid), and
-     every layer x scheme x arm at 100: every gate of
-     repro_torch.campaign.run.check, deferred == full per arm, and one
-     cell per layer (64 trials per arm) against the port's own CPU run
-     (no detected or residual mismatch; corrected_by may differ only
-     between two correcting verdicts, in at most 1% of the trials);
-     CSV rows and us per trial;
+  8. the campaign on the card, in five child processes started before
+     phase 6 and collected after phase 7b (its trial loops wait on the
+     host): matmul and conv, scheme full, every registered fault arm,
+     1000 trials per cell (the paper's grid), and every layer x scheme x
+     arm at 100: every gate of repro_torch.campaign.run.check, deferred
+     == full per arm, and one cell per layer (64 trials per arm) against
+     the port's own CPU run (no detected or residual mismatch;
+     corrected_by may differ only between two correcting verdicts, in at
+     most 1% of the trials); CSV rows and us per trial;
   9. the calibrated plan on phase 4's ResNet-18: the card's peaks measured
      (an IEEE-fp32 8192^3 GEMM and a 256 MiB-per-array triad; each within
      105% of the datasheet), the measured-roofline plan
@@ -102,9 +108,9 @@ Phases, each fatal on failure:
      new plans' launches per forward, their forwards timed in turns with
      the unprotected one and phase 4's pinned plan (error-free overhead);
      the profile's decisions for SmolLM-360M at batch 8 x seq 128;
-  10. the async ServingDriver on phase 6's model cut to its first 4 layers
+  10. the async ServingDriver on phase 6's model cut to its first 2 layers
      at full width (a plan of its own) and phase 6's 16 requests: every
-     request completes with the synchronous session's tokens, 29 detect
+     request completes with the synchronous session's tokens, 15 detect
      launches and 1 host read per forward; backpressure (capacity 4: 12 of 16
      rejected, the 4 accepted served) and a lapsed deadline (timeout,
      never a slot); phase 7's head drill under a fault_scope around
@@ -123,7 +129,7 @@ Phases, each fatal on failure:
      reference's bf16 thresholds do not promise them, ROADMAP 3.5), and
      the device ms of the backward's two launches, the D^T copy,
      torch.matmul and the plain version beside the bound; (b) the train
-     step on SmolLM-360M at full width and 8 of its 32 layers (bf16
+     step on SmolLM-360M at full width and 4 of its 32 layers (bf16
      params, fp32 AdamW, batch 8 x 256 in 2 microbatches,
      warmup 1, lr 1e-3) over three cycled batches for 12 steps: every
      report clean, the loss falling, one step bitwise its abft=False
@@ -135,14 +141,15 @@ Phases, each fatal on failure:
      restore, and one element of the head's output corrupted (+1e4, as in
      phase 7) in one step corrected and counted by StepRunner, the loss
      within rtol 1e-4;
-  12. Mamba2-1.3B at full width and its first 8 of 48 layers in bf16
-     (random params from a seed, a plan of its own), served as phase 6
-     serves SmolLM-360M (8 slots, deferred, the kernels pinned, 16
-     requests of 16-128 tokens, each prefilled at its own length, 32 new
-     tokens each): every request finishes by length, zero flags, 17
-     abft_matmul_detect launches and 1 host read per forward; per_layer
-     serves the first 8 requests' 8 tokens alike with 17 reads and 17
-     abft_matmul launches per forward; teacher-forced through the uncached
+  12. Mamba2-1.3B at full width and its first 4 of 48 layers in bf16
+     (random params drawn on the card from a seed, a plan of its own),
+     served as phase 6 serves SmolLM-360M (8 slots, deferred, the kernels
+     pinned, 16 requests of 16-128 tokens, each prefilled at its own
+     length, 32 new tokens each): every request finishes by length, zero
+     flags, none echoing its prompt's last token, 9 abft_matmul_detect
+     launches and 1 host read per forward; per_layer serves the first 8
+     requests' 8 tokens alike with 9 reads and 9 abft_matmul launches per
+     forward; teacher-forced through the uncached
      forward, every served token's bf16 margin below the unprotected
      forward's top logit within twice the routes' logit gap plus 0.1, and
      a float32 twin's within 0.1; the unprotected and the kernels-on
@@ -153,13 +160,22 @@ Phases, each fatal on failure:
      after which every token equals the clean run's (the corrective rerun
      starts from the step's input state); init and build_plan seconds and
      peak device memory;
-  13. RecurrentGemma-2B at full width and depth in bf16 (26 layers: 18
-     RG-LRU blocks, 8 sliding-window attention blocks on one KV head, 26
-     gelu FFNs, the tied 256,000-token head; random params from a seed,
-     the table scaled by 1/16), served and checked as phase 12 with 201
-     launches and reads per forward; the prefill drill at one repeat's
-     attn_swa wk (the KV-cache write), the decode drill at one repeat's
-     rec in_x (it feeds both the conv tail and h).
+  13. RecurrentGemma-2B at full width and its first 6 of 26 layers in
+     bf16 (two repeats of its pattern: 4 RG-LRU blocks, 2 sliding-window
+     attention blocks on one KV head, 6 gelu FFNs, the tied 256,000-token
+     head; random params drawn on the card from a seed, the table scaled
+     by 1/16), served and checked as phase 12 with 47 launches and reads
+     per forward; the prefill drill at one repeat's attn_swa wk (the
+     KV-cache write), the decode drill at one repeat's rec in_x (it feeds
+     both the conv tail and h);
+  14. MusicGen-large at full width and depth in bf16 (48 layers of
+     attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
+     the untied 2048 x 8192 head; random params drawn on the card from a
+     seed), served as phase 12 with prompts of (16-128, 4) tokens and
+     K-list tokens out: 337 launches and reads per forward, every
+     codebook's served token teacher-forced within the bounds of phase
+     12; the prefill drill at one repeat's attention wk, the decode drill
+     at one repeat's FFN up.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -194,9 +210,19 @@ SERVE_ARCH = "smollm-360m"
 SLOTS, MAX_LEN = 8, 256
 N_REQ, GEN, PROMPT_LENS = 16, 32, (16, 128)
 # trials per cell of the campaign's whole grid (3 layers x 5 schemes x
-# every arm; 100 leaves the training phase room in the call's time); the
-# paper grid runs 1000
+# every arm; 100 leaves the training phase room in the call's time) and
+# of the paper grid
 GRID_TRIALS = 100
+PAPER_TRIALS = 1000
+# card vs CPU: trials per arm of each layer under scheme full
+CMP_TRIALS = 64
+# phase 8's parts, one child process each (start_campaign): a layer of
+# the paper grid, layers of the whole grid, the card-vs-CPU replay
+CAMPAIGN_PARTS = ("paper:matmul", "paper:conv", "grid:matmul,conv",
+                  "grid:transformer_gemm", "vs_cpu")
+# seconds from their start after which a part still running fails the
+# phase (the slowest took 197 s beside phases 6-7b)
+CAMPAIGN_LIMIT_S = 600
 # rounds in turns of phase 6's three timed sessions and phase 10's driver
 # against the session, and samples per forward in phase 5b's turns: cut
 # from 3 and 5 so that the run with phase 11 stays within its time on a
@@ -226,9 +252,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TRAIN_LR = 8, 256, 2, 12, 1e-3
 TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ   # rows of a training GEMM (11a)
 DRIVER_LAYERS = 4                      # depth of the driver's runs (11c)
 # depth of phase 10's driver and of phase 11b's train step: SmolLM-360M's
-# first layers at full width (cut from 32 to make room for phase 12)
-DRIVER_PHASE_LAYERS = 4
-TRAIN_LAYERS = 8
+# first layers at full width (cut from 32 to 4 and 8 to make room for
+# phase 12, then to 2 and 4 for phase 14)
+DRIVER_PHASE_LAYERS = 2
+TRAIN_LAYERS = 4
 # the Mamba-2 slice: Mamba2-1.3B at full width and depth, bf16, served as
 # phase 6 serves SmolLM-360M; (label, K, M, launches per forward) of its
 # GEMM sites (48 layers of in_proj and out_proj, the untied head) and the
@@ -240,8 +267,9 @@ MAMBA_SITES = (("in_proj", 2048, 8512, False, 48),
                ("head", 2048, 50280, False, 1))
 MAMBA_ROWS = (SLOTS, 97, 128)
 # depth of phase 12's Mamba2-1.3B: its first layers at full width (cut
-# from 48 to make room for phase 13); phase 3c keeps the full-depth counts
-MAMBA_LAYERS = 8
+# from 48 to 8 to make room for phase 13, then to 4 for phase 14); phase
+# 3c keeps the full-depth counts
+MAMBA_LAYERS = 4
 # the RG-LRU slice: RecurrentGemma-2B at full width and depth, bf16, served
 # as phase 12 serves Mamba2-1.3B; its distinct GEMM shapes with their
 # launches per forward (26 layers: 18 rec blocks of in_x, in_gate, gate_a,
@@ -261,6 +289,22 @@ RG_ROWS = (SLOTS, 97, 128)
 # whatever the recurrent state holds (as the reduced model does on the
 # CPU); scaled, the served tokens depend on the state
 RG_TABLE_SCALE = 1 / 16
+# depth of phase 13's RecurrentGemma-2B: two repeats of its pattern (rec,
+# ffn, rec, ffn, attn_swa, ffn) at full width (cut from 26 to make room
+# for phase 14); phase 3d keeps the full-depth counts
+RG_LAYERS = 6
+# the multi-codebook slice: MusicGen-large at full width and depth, bf16,
+# served as phase 12 serves Mamba2-1.3B; its distinct GEMM shapes with
+# their launches per forward (48 layers of wq, wk, wv and wo on 32 heads
+# of 64, 48 gelu FFNs, the untied head over 4 codebooks of 2048) and the
+# row counts phase 3e holds them at: a decode step's slots and the
+# session's prefill buckets (attention-only: prompts are padded)
+MUSICGEN_ARCH = "musicgen-large"
+MUSICGEN_SITES = (("wq/wk/wv/wo", 2048, 2048, False, 192),
+                  ("gate/up", 2048, 8192, False, 96),
+                  ("down", 8192, 2048, False, 48),
+                  ("head", 2048, 8192, False, 1))
+MUSICGEN_ROWS = SERVE_ROWS
 
 
 def log(*a):
@@ -1091,6 +1135,12 @@ def check_rg_kernels(gen, report):
     return check_model_kernels(gen, report, "rg_kernels", RG_SITES, RG_ROWS)
 
 
+def check_musicgen_kernels(gen, report):
+    """Phase 3e: the bf16 kernels at MusicGen-large's shapes."""
+    return check_model_kernels(gen, report, "musicgen_kernels",
+                               MUSICGEN_SITES, MUSICGEN_ROWS)
+
+
 # --------------------------------------------------------------------------
 # phases 4 and 5: the slice
 # --------------------------------------------------------------------------
@@ -1505,10 +1555,19 @@ def run_erroneous(params, x, cfg, fused, logits, scale, unprot,
 # --------------------------------------------------------------------------
 
 def serve_prompts(cfg, n: int, seed: int):
+    """`n` prompts of PROMPT_LENS tokens, (S, K) arrays for a model with K
+    codebooks."""
     rng = __import__("numpy").random.default_rng(seed)
     lo, hi = PROMPT_LENS
-    return [rng.integers(0, cfg.vocab_size, int(k))
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    return [rng.integers(0, cfg.vocab_size, (int(k),) + cb)
             for k in rng.integers(lo, hi + 1, n)]
+
+
+def token_key(tok):
+    """A served token (an int, or a K-list of a multi-codebook model) as a
+    hashable value."""
+    return tuple(tok) if isinstance(tok, list) else tok
 
 
 def serve(params, cfg, plan, prompts, gen: int, correction="auto",
@@ -1537,7 +1596,9 @@ def teacher_forced(params, cfg, fused, prompts, served):
     """Each prompt with its served tokens through the uncached forward,
     unprotected and under the plan's detect-only routes: (the largest
     logit gap between the two, the largest margin of a served token's
-    unprotected logit below the unprotected top logit at its position)."""
+    unprotected logit below the unprotected top logit at its position;
+    with K codebooks, every codebook's token against its own K-th logits)."""
+    import numpy as np
     import torch
     from repro_torch import core, fp32_ieee
     from repro_torch.models import transformer as M
@@ -1545,7 +1606,9 @@ def teacher_forced(params, cfg, fused, prompts, served):
     gap, worst = 0.0, 0.0
     with torch.no_grad(), fp32_ieee():
         for p, toks in zip(prompts, served):
-            seq = torch.as_tensor(list(p) + list(toks), device=DEVICE)[None]
+            seq = torch.as_tensor(np.concatenate([np.asarray(p),
+                                                  np.asarray(toks)]),
+                                  device=DEVICE)[None]
             ref, _, _ = M._forward(params, seq, ucfg)
             with core.plan_scope(fused, mode="detect_only"):
                 kern, _, _ = M._forward(params, seq, cfg)
@@ -1556,7 +1619,7 @@ def teacher_forced(params, cfg, fused, prompts, served):
                 fail(f"non-finite logits teacher-forcing {cfg.name}")
             gap = max(gap, max_err(kern[0, pos], ref_p))
             margin = ref_p.max(dim=-1).values - ref_p.gather(
-                1, seq[0, plen:, None])[:, 0]
+                -1, seq[0, plen:, ..., None])[..., 0]
             worst = max(worst, float(margin.max()))
     return gap, worst
 
@@ -1576,8 +1639,11 @@ def run_serving(report):
 
     cfg = configs.get(SERVE_ARCH)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
-                           device=DEVICE)
+    # drawn on the card: seconds for a model of billions of params, where
+    # the host's generator takes most of a minute
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2821,19 +2887,24 @@ def run_training_phase(report) -> dict:
 
 
 # --------------------------------------------------------------------------
-# phases 12 and 13: serving a recurrent model (Mamba2-1.3B, RecurrentGemma-2B)
+# phases 12, 13 and 14: serving a model of its own (Mamba2-1.3B,
+# RecurrentGemma-2B, MusicGen-large)
 # --------------------------------------------------------------------------
 
 def run_recurrent_serving(report, key: str, arch: str, layers: int,
                           n_sites: int, prefill_site: str, decode_site: str,
                           table_scale: float = 1.0) -> dict:
     """`arch` at full width and `layers` layers (0: its full depth) in bf16
-    (random params from a seed; the embedding table times `table_scale`)
+    (random params drawn on the card from a seed; the embedding table
+    times `table_scale`)
     served as phase 6 serves SmolLM-360M: deferred, the kernels pinned, 8
-    slots, 16 requests (prompts of 16-128 tokens, each prefilled at its
-    own length), 32 new tokens each. Checks: every request finishes by
-    length, zero flags, no slot hit, `n_sites` detect launches and 1 host
-    read per forward; per_layer serves the first 8 requests' 8 tokens
+    slots, 16 requests (prompts of 16-128 tokens, (S, K) arrays for a
+    model with K codebooks, each prefilled at its own length when the
+    model is recurrent, in its bucket otherwise), 32 new tokens each
+    (K-lists with K codebooks). Checks: every request finishes by length,
+    zero flags, no slot hit, `n_sites` detect launches and 1 host read per
+    forward; no request whose every served token is its prompt's last
+    one (an echo); per_layer serves the first 8 requests' 8 tokens
     alike with `n_sites` reads and abft_matmul launches per forward;
     teacher-forced through the uncached forward, every served token's bf16
     margin below the unprotected forward's top logit within twice the
@@ -2858,8 +2929,11 @@ def run_recurrent_serving(report, key: str, arch: str, layers: int,
     if layers:
         cfg = cfg.replace(num_layers=layers)
     t0 = time.perf_counter()
-    params = M.init_params(cfg, generator=torch.Generator().manual_seed(SEED),
-                           device=DEVICE)
+    # drawn on the card: seconds for a model of billions of params, where
+    # the host's generator takes most of a minute
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
     if table_scale != 1.0:
         params["embed"]["table"].mul_(table_scale)
     torch.cuda.synchronize()
@@ -2893,8 +2967,14 @@ def run_recurrent_serving(report, key: str, arch: str, layers: int,
                 "abft_matmul": AM.LAUNCHES}
     reads = workflow.HOST_READS
     tokens = {r: sess.tokens_for(r) for r in rids}
-    distinct = [len(set(t)) for t in tokens.values()]
-    log(f"  distinct tokens per request: {distinct}")
+    distinct = [len({token_key(x) for x in t}) for t in tokens.values()]
+    echoes = [r for r, p in zip(rids, prompts)
+              if all(token_key(x) == token_key(p[-1].tolist())
+                     for x in tokens[r])]
+    log(f"  distinct tokens per request: {distinct}; requests echoing the "
+        f"prompt's last token: {len(echoes)}")
+    if echoes:
+        fail(f"requests {echoes} echo their prompt's last token")
     reasons = [r["finish_reason"] for r in rep["requests"]]
     log(f"  deferred, kernels on: {rep['completed']} requests (prompts "
         f"{sorted(len(p) for p in prompts)}), {c['prefills']} prefills + "
@@ -3129,15 +3209,29 @@ def run_mamba_serving(report) -> dict:
 
 
 def run_rg_serving(report) -> dict:
-    """Phase 13: RecurrentGemma-2B at full width and depth, 201 sites per
-    forward (RG_SITES); the prefill drill at one repeat's attn_swa wk (the
-    KV-cache write), the decode drill at one repeat's rec in_x (it feeds
-    both the conv tail and h)."""
-    log("phase 13: RecurrentGemma-2B serving")
+    """Phase 13: RecurrentGemma-2B at full width and its first RG_LAYERS
+    layers (two repeats of its pattern, a plan of its own): 23 sites a
+    repeat (2 rec blocks of 5, one attn_swa of 4, 3 ffns of 3) and the
+    tied head per forward; the prefill drill at one repeat's attn_swa wk
+    (the KV-cache write), the decode drill at one repeat's rec in_x (it
+    feeds both the conv tail and h)."""
+    log(f"phase 13: RecurrentGemma-2B serving ({RG_LAYERS} layers)")
     return run_recurrent_serving(
-        report, "rg_serving", RG_ARCH, 0,
-        sum(site[-1] for site in RG_SITES), "stages/b4_attn_swa/attn/wk",
-        "stages/b0_rec/rec/in_x", RG_TABLE_SCALE)
+        report, "rg_serving", RG_ARCH, RG_LAYERS, 23 * RG_LAYERS // 3 + 1,
+        "stages/b4_attn_swa/attn/wk", "stages/b0_rec/rec/in_x",
+        RG_TABLE_SCALE)
+
+
+def run_musicgen_serving(report) -> dict:
+    """Phase 14: MusicGen-large at full width and depth, 337 sites per
+    forward (MUSICGEN_SITES), (S, 4) prompts and K-list tokens; the
+    prefill drill at one repeat's attention wk (the KV-cache write), the
+    decode drill at one repeat's FFN up."""
+    log("phase 14: MusicGen-large serving")
+    return run_recurrent_serving(
+        report, "musicgen_serving", MUSICGEN_ARCH, 0,
+        sum(site[-1] for site in MUSICGEN_SITES),
+        "stages/b0_attn_full/attn/wk", "stages/b1_ffn/ffn/up")
 
 
 
@@ -3146,37 +3240,130 @@ def run_rg_serving(report) -> dict:
 # phase 8: the campaign
 # --------------------------------------------------------------------------
 
-def run_campaign_phase(report) -> dict:
+def campaign_part(spec: dict) -> dict:
+    """One part of phase 8, run in a process of its own (`--campaign-part
+    SPEC`): a layer of the paper grid at spec["paper_trials"] per cell,
+    some layers of the whole grid at spec["grid_trials"], or ("vs_cpu")
+    every arm of every layer at spec["cmp_trials"] under scheme full on
+    the card and on the CPU, with the per-arm counts of differing
+    verdicts and the differing corrected_by values. A result is the
+    CampaignResult's dict or {"vs_cpu": {...}}."""
+    import numpy as np
+    import torch
+    from repro_torch.campaign import (LAYER_CASES, SCHEME_CONFIGS,
+                                      CampaignEngine)
+    from repro_torch.core import injection as inj
+    kind, _, arg = spec["part"].partition(":")
+    if kind != "vs_cpu":
+        # the trial loops launch small ops one by one from the host;
+        # one intra-op thread each leaves the cores to the other parts
+        torch.set_num_threads(1)
+    eng = CampaignEngine(device=spec["device"])
+    seed = spec["seed"]
+    if kind == "paper":
+        return eng.run([arg], ["full"], trials=spec["paper_trials"],
+                       seed=seed).to_dict()
+    if kind == "grid":
+        return eng.run(arg.split(","), list(SCHEME_CONFIGS),
+                       trials=spec["grid_trials"], seed=seed).to_dict()
+    cpu = CampaignEngine(device="cpu")
+    n = spec["cmp_trials"]
+    out = {}
+    for layer in LAYER_CASES:
+        for fault in [inj.CONTROL_MODEL] + inj.fault_model_names():
+            a, _ = eng.run_trials(layer, "full", fault, n, seed=seed)
+            b, _ = cpu.run_trials(layer, "full", fault, n, seed=seed)
+            rung = a.corrected_by != b.corrected_by
+            out[f"{layer}/{fault}"] = {
+                **{f: int(np.sum(getattr(a, f) != getattr(b, f)))
+                   for f in ("detected", "corrected_by", "residual")},
+                "rungs": [a.corrected_by[rung].tolist(),
+                          b.corrected_by[rung].tolist()]}
+    return {"vs_cpu": out}
+
+
+def start_campaign() -> dict:
+    """Start phase 8: each of CAMPAIGN_PARTS in a child process of this
+    script, writing its result under build/chip_smoke_campaign/. The
+    trial loops wait on the host (about 10 ms a trial, the card mostly
+    idle), so the parts run side by side and beside phases 6-7b;
+    run_campaign_phase collects them."""
+    import shutil
+    out_dir = ROOT / "build" / "chip_smoke_campaign"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    procs = []
+    for i, part in enumerate(CAMPAIGN_PARTS):
+        spec = {"part": part, "device": DEVICE, "seed": SEED,
+                "paper_trials": PAPER_TRIALS, "grid_trials": GRID_TRIALS,
+                "cmp_trials": CMP_TRIALS}
+        out, logf = out_dir / f"part{i}.json", out_dir / f"part{i}.log"
+        with open(logf, "w") as f:
+            p = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--campaign-part", json.dumps(spec), "--json", str(out)],
+                stdout=f, stderr=subprocess.STDOUT, cwd=ROOT)
+        procs.append({"part": part, "proc": p, "out": out, "log": logf})
+    log(f"phase 8: the campaign, started in {len(procs)} processes "
+        f"beside phases 6-7b: {', '.join(CAMPAIGN_PARTS)}")
+    return {"procs": procs, "t0": time.perf_counter()}
+
+
+def stop_campaign(started: dict) -> None:
+    """End every child process of start_campaign still running."""
+    for c in started.get("procs", []):
+        if c["proc"].poll() is None:
+            c["proc"].kill()
+        c["proc"].wait()
+
+
+def run_campaign_phase(report, started: dict) -> dict:
     """Phase 8: the fault-injection campaign on the card. The JAX CLI's
     default grid (matmul and conv, scheme full, every registered arm) at
-    1000 trials per cell, and the whole grid (three layers x five
+    PAPER_TRIALS per cell, and the whole grid (three layers x five
     schemes x every arm) at GRID_TRIALS: every gate of the port's check
     holds, and deferred gives full's detection rate and scheme histogram
     per arm.
-    One cell per layer (64 trials per arm, scheme full) is run again on
-    the CPU: the per-trial verdicts are compared; a detected or residual
-    mismatch fails. corrected_by may differ (which rung first verifies
-    depends on the order of the sums, ROADMAP 3.4), but only between two
-    correcting verdicts and in at most RUNG_MISMATCH_SHARE of the
-    trials."""
+    Every arm of every layer (CMP_TRIALS trials, scheme full) is run
+    again on the CPU: the per-trial verdicts are compared; a detected or
+    residual mismatch fails. corrected_by may differ (which rung first
+    verifies depends on the order of the sums, ROADMAP 3.4), but only
+    between two correcting verdicts and in at most RUNG_MISMATCH_SHARE of
+    the trials. The parts ran in start_campaign's processes; this waits
+    for them and checks what they wrote."""
     import numpy as np
-    from repro_torch.campaign import (LAYER_CASES, SCHEME_CONFIGS,
-                                      CampaignEngine)
+    from repro_torch.campaign import CampaignResult, CellResult
     from repro_torch.campaign.run import check
     from repro_torch.core import types as T
     correcting = [T.COC, T.RC, T.CLC, T.FC, T.RECOMPUTE]
 
-    log("phase 8: the campaign")
-    eng = CampaignEngine(device=DEVICE)
-    rows = lambda c: log(f"  {c.row()}")
-    t0 = time.perf_counter()
-    paper = eng.run(["matmul", "conv"], ["full"], trials=1000, seed=SEED,
-                    progress=rows)
-    paper_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    grid = eng.run(list(LAYER_CASES), list(SCHEME_CONFIGS),
-                   trials=GRID_TRIALS, seed=SEED, progress=rows)
-    grid_s = time.perf_counter() - t0
+    log("phase 8: the campaign (collected)")
+    t_wait = time.perf_counter()
+    got = {}
+    for c in started["procs"]:
+        left = CAMPAIGN_LIMIT_S - (time.perf_counter() - started["t0"])
+        try:
+            rc = c["proc"].wait(timeout=max(1.0, left))
+        except subprocess.TimeoutExpired:
+            fail(f"campaign part {c['part']} still running "
+                 f"{CAMPAIGN_LIMIT_S} s after its start")
+        if rc != 0 or not c["out"].is_file():
+            tail = c["log"].read_text()[-4000:] if c["log"].is_file() else ""
+            fail(f"campaign part {c['part']} exited {rc}:\n{tail}")
+        got[c["part"]] = json.loads(c["out"].read_text())
+    waited = time.perf_counter() - t_wait
+    wall_s = time.perf_counter() - started["t0"]
+
+    def merged(kind):
+        parts = [got[p] for p in CAMPAIGN_PARTS if p.startswith(kind)]
+        cells = [CellResult(**c) for r in parts for c in r["cells"]]
+        meta = dict(parts[0]["meta"], wall_seconds=sum(
+            c.wall_seconds for c in cells))
+        return CampaignResult(cells=cells, meta=meta)
+
+    paper, grid = merged("paper:"), merged("grid:")
+    for c in paper.cells + grid.cells:
+        log(f"  {c.row()}")
     bad = check(paper) + check(grid)
     if bad:
         fail(f"campaign gates: {bad}")
@@ -3188,42 +3375,34 @@ def run_campaign_phase(report) -> dict:
                 fail(f"{c.layer}/{c.fault}: deferred {c.detection_rate} "
                      f"{c.corrected_by} vs full {f.detection_rate} "
                      f"{f.corrected_by}")
-    cpu = CampaignEngine(device="cpu")
-    mism = {}
-    for layer in LAYER_CASES:
-        for fault in [c.fault for c in grid.cells
-                      if c.layer == layer and c.scheme == "full"]:
-            a, _ = eng.run_trials(layer, "full", fault, 64, seed=SEED)
-            b, _ = cpu.run_trials(layer, "full", fault, 64, seed=SEED)
-            n = {f: int(np.sum(getattr(a, f) != getattr(b, f)))
-                 for f in ("detected", "corrected_by", "residual")}
-            mism[f"{layer}/{fault}"] = n
-            if n["detected"] or n["residual"]:
-                fail(f"card vs CPU {layer}/{fault}: {n}")
-            rung = a.corrected_by != b.corrected_by
-            if not (np.isin(a.corrected_by[rung], correcting).all()
-                    and np.isin(b.corrected_by[rung], correcting).all()):
-                fail(f"card vs CPU {layer}/{fault}: corrected_by "
-                     f"{a.corrected_by[rung]} vs {b.corrected_by[rung]}")
+    mism = got["vs_cpu"]["vs_cpu"]
+    for key, n in mism.items():
+        if n["detected"] or n["residual"]:
+            fail(f"card vs CPU {key}: {n}")
+        a, b = n.pop("rungs")
+        if not (np.isin(a, correcting).all()
+                and np.isin(b, correcting).all()):
+            fail(f"card vs CPU {key}: corrected_by {a} vs {b}")
     by = sum(v["corrected_by"] for v in mism.values())
-    if by > RUNG_MISMATCH_SHARE * 64 * len(mism):
+    if by > RUNG_MISMATCH_SHARE * CMP_TRIALS * len(mism):
         fail(f"card vs CPU: {by} corrected_by mismatches in "
-             f"{64 * len(mism)} trials")
+             f"{CMP_TRIALS * len(mism)} trials")
     trials = sum(c.trials for c in paper.cells + grid.cells)
-    wall = paper.meta["wall_seconds"] + grid.meta["wall_seconds"]
+    loops = paper.meta["wall_seconds"] + grid.meta["wall_seconds"]
     log(f"  gates hold on {len(paper.cells)} paper cells x "
         f"{paper.meta['trials']} and {len(grid.cells)} grid cells x "
         f"{grid.meta['trials']} trials; deferred == full per "
-        f"arm; card vs CPU (64 trials per arm, scheme full): 0 detected / "
-        f"0 residual mismatches, {by} corrected_by mismatches of "
-        f"{64 * len(mism)}")
-    log(f"  {trials} trials, {wall:.1f} s in the trial loops "
-        f"({wall / trials * 1e6:.0f} us per trial on the host clock); "
-        f"phase {paper_s + grid_s:.1f} s")
+        f"arm; card vs CPU ({CMP_TRIALS} trials per arm, scheme full): 0 "
+        f"detected / 0 residual mismatches, {by} corrected_by mismatches "
+        f"of {CMP_TRIALS * len(mism)}")
+    log(f"  {trials} trials, {loops:.1f} s in the trial loops of "
+        f"{len(started['procs'])} processes ({loops / trials * 1e6:.0f} us "
+        f"per trial on the host clock); {wall_s:.1f} s from their start, "
+        f"{waited:.1f} s of it waited for here")
     res = {"paper": paper.to_dict(), "grid": grid.to_dict(),
            "card_vs_cpu_mismatches": mism,
-           "us_per_trial": wall / trials * 1e6,
-           "paper_s": paper_s, "grid_s": grid_s}
+           "us_per_trial": loops / trials * 1e6,
+           "wall_s": wall_s, "waited_s": waited}
     report["campaign"] = res
     return res
 
@@ -3232,7 +3411,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", metavar="PATH",
                     help="also write the run's details as JSON to PATH")
+    ap.add_argument("--campaign-part", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.campaign_part:
+        # a child of start_campaign: one part of phase 8, its result to
+        # the --json path
+        sys.path.insert(0, str(SRC))
+        res = campaign_part(json.loads(args.campaign_part))
+        Path(args.json).write_text(json.dumps(res))
+        return 0
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card "
@@ -3287,6 +3474,8 @@ def main(argv=None) -> int:
     timed("3c", check_mamba_kernels, gen, report)
     log("phase 3d: the kernels at RecurrentGemma-2B's shapes")
     timed("3d", check_rg_kernels, gen, report)
+    log("phase 3e: the kernels at MusicGen-large's shapes")
+    timed("3e", check_musicgen_kernels, gen, report)
 
     log("phase 4: the slice")
     res, slice_ctx = timed("4-5b", run_slice, report)
@@ -3294,8 +3483,14 @@ def main(argv=None) -> int:
         k["launches"] = res["per_layer"]["launches"][k["name"]]
         k["launches_from"] = "phase 4: one clean per_layer forward"
 
-    log("phase 6: the serving slice")
-    serving, serve_ctx = timed("6-7b", run_serving, report)
+    campaign = {}
+    try:
+        campaign.update(timed("8-start", start_campaign))
+        log("phase 6: the serving slice")
+        serving, serve_ctx = timed("6-7b", run_serving, report)
+        timed("8", run_campaign_phase, report, campaign)
+    finally:
+        stop_campaign(campaign)
     # the detect kernel's count is the deferred main path's; the serving
     # abft_matmul row's is the per_layer path's (0 launches when deferred
     # and clean)
@@ -3304,7 +3499,6 @@ def main(argv=None) -> int:
     kernels[2]["launches_from"] = "phase 6: the deferred session's forwards"
     kernels[3]["launches"] = serving["per_layer"]["launches"]
     kernels[3]["launches_from"] = "phase 6: the per_layer session's forwards"
-    timed("8", run_campaign_phase, report)
     timed("9", run_calibrated_plan, report, slice_ctx)
     del slice_ctx
     timed("10", run_driver_phase, report, serve_ctx)
@@ -3312,6 +3506,7 @@ def main(argv=None) -> int:
     timed("11", run_training_phase, report)
     timed("12", run_mamba_serving, report)
     timed("13", run_rg_serving, report)
+    timed("14", run_musicgen_serving, report)
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"

@@ -4,7 +4,10 @@ The lookup is a gather (no weight-stationary invariant); the LM head GEMM
 is protected through protect_site: the plan entry at "embed/head" (untied)
 or "embed/table" (tied, through the plan's "tied_head" weight view, whose
 GEMM weight is the transposed embedding table, read in place).
-Multi-codebook I/O is not ported yet (ROADMAP item 1.7)."""
+MusicGen-style multi-codebook I/O: K embedding tables (K, V, d) summed on
+input for (B, S, K) tokens, and one head GEMM of width K·V on output whose
+logits come out as (B, S, K, V); the EnCodec frontend is a stub, as in the
+JAX package (tokens arrive precomputed)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -19,40 +22,42 @@ from .linear import apply_dense, init_dense
 F32 = torch.float32
 
 
-def _no_codebooks(cfg) -> None:
-    if cfg.num_codebooks:
-        raise NotImplementedError(
-            "multi-codebook embeddings are not ported yet (ROADMAP item "
-            "1.7)")
-
-
 def init_embedding(generator: torch.Generator, cfg, dtype=torch.bfloat16,
                    device=None) -> Dict:
-    _no_codebooks(cfg)
+    """A (K, V, d) table (K = 1 without codebooks) and, untied, a head of
+    d x K·V."""
     v, d = cfg.vocab_size, cfg.d_model
-    table = torch.randn((1, v, d), generator=generator, dtype=F32) * d ** -0.5
+    nc = max(cfg.num_codebooks, 1)
+    table = torch.randn((nc, v, d), generator=generator, dtype=F32,
+                        device=generator.device) * d ** -0.5
     p = {"table": table.to(device=device, dtype=dtype)}
     if not cfg.tie_embeddings:
-        p["head"] = init_dense(generator, d, v, dtype=dtype, device=device)
+        p["head"] = init_dense(generator, d, nc * v, dtype=dtype,
+                               device=device)
     return p
 
 
 def embed(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    """tokens: (B, S) -> (B, S, d)."""
-    _no_codebooks(cfg)
-    return params["table"][0][tokens]
+    """tokens: (B, S), or (B, S, K) for multi-codebook archs -> (B, S, d),
+    the sum of the K codebook embeddings."""
+    table = params["table"]
+    if cfg.num_codebooks:
+        # table[k][tokens[..., k]] for every k at once: (B, S, K, d)
+        cb = torch.arange(cfg.num_codebooks, device=tokens.device)
+        return table[cb, tokens].sum(dim=2)
+    return table[0][tokens]
 
 
 def logits_head(params: Dict, x: torch.Tensor, cfg,
                 abft: ProtectConfig = None
                 ) -> Tuple[torch.Tensor, FaultReport]:
-    """x: (B, S, d) -> fp32 logits (B, S, V)."""
-    _no_codebooks(cfg)
+    """x: (B, S, d) -> fp32 logits (B, S, V), or (B, S, K, V)."""
     b, s, d = x.shape
     v = cfg.vocab_size
+    nc = max(cfg.num_codebooks, 1)
     with path_scope("embed"):
         if cfg.tie_embeddings:
-            w = params["table"].reshape(v, d).T            # (d, V), a view
+            w = params["table"].reshape(nc * v, d).T       # (d, K·V), a view
             entry = resolve_entry("table")
             if (entry is not None or ambient_mode() is not None
                     or (abft is not None and abft.enabled)):
@@ -63,4 +68,7 @@ def logits_head(params: Dict, x: torch.Tensor, cfg,
                 rep = FaultReport.clean()
         else:
             y, rep = apply_dense(params["head"], x, abft, name="head")
-    return y.to(F32).reshape(b, s, v), rep
+    y = y.to(F32)
+    if cfg.num_codebooks:
+        return y.reshape(b, s, nc, v), rep
+    return y.reshape(b, s, v), rep

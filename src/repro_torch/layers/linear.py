@@ -23,9 +23,11 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, dtype=torch.bfloat16,
                scale: Optional[float] = None, device=None):
     """Normal(0, scale) weights (scale d_in^-0.5 by default), drawn in fp32
-    on the CPU from `generator` and cast, then moved to `device`."""
+    from `generator` on its device (the CPU for a CPU generator) and
+    cast, then moved to `device`."""
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=generator, dtype=F32) * scale
+    w = torch.randn((d_in, d_out), generator=generator, dtype=F32,
+                    device=generator.device) * scale
     p = {"w": w.to(device=device, dtype=dtype)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)

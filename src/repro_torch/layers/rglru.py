@@ -35,13 +35,14 @@ _C = 8.0  # Griffin's fixed temperature
 
 def init_rglru(generator: torch.Generator, cfg, dtype=torch.bfloat16,
                device=None) -> Dict:
-    """Random block params, drawn in fp32 on the CPU from `generator`;
+    """Random block params, drawn in fp32 from `generator` on its device;
     `lam` is deterministic and stays float32."""
     d, w = cfg.d_model, cfg.lru_width or cfg.d_model
     in_x = init_dense(generator, d, w, dtype=dtype, device=device)
     in_gate = init_dense(generator, d, w, dtype=dtype, device=device)
     conv_w = (torch.randn((cfg.conv_kernel, w), generator=generator,
-                          dtype=F32) * cfg.conv_kernel ** -0.5)
+                          dtype=F32, device=generator.device)
+              * cfg.conv_kernel ** -0.5)
     # Lambda init so a^c in [0.9, 0.999] (Griffin §2.4)
     a = torch.linspace(0.9, 0.999, w, dtype=F32)
     lam = torch.log(torch.expm1(-torch.log(a) / _C))

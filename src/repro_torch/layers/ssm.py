@@ -40,14 +40,16 @@ def _dims(cfg):
 
 def init_ssm(generator: torch.Generator, cfg, dtype=torch.bfloat16,
              device=None) -> Dict:
-    """Random block params, drawn in fp32 on the CPU from `generator`."""
+    """Random block params, drawn in fp32 from `generator` on its
+    device."""
     d = cfg.d_model
     d_inner, h, p, n = _dims(cfg)
     # in_proj packs [z (gate), x, B, C, dt]
     d_in_proj = 2 * d_inner + 2 * n + h
     in_proj = init_dense(generator, d, d_in_proj, dtype=dtype, device=device)
     conv_w = (torch.randn((cfg.conv_kernel, d_inner + 2 * n),
-                          generator=generator, dtype=F32)
+                          generator=generator, dtype=F32,
+                          device=generator.device)
               * cfg.conv_kernel ** -0.5)
     out_proj = init_dense(generator, d_inner, d, dtype=dtype,
                           scale=d_inner ** -0.5, device=device)

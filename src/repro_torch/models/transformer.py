@@ -1,7 +1,8 @@
 """Decoder-LM assembler (twin of repro.models.transformer: attention,
-dense-FFN, Mamba-2 SSD and RG-LRU blocks): init, caches, the protected
-forward, the training forward (autograd through the protected route),
-prefill and decode, and the ProtectedModel apply_fns.
+dense-FFN, Mamba-2 SSD and RG-LRU blocks, and multi-codebook token I/O):
+init, caches, the protected forward, the training forward (autograd
+through the protected route), prefill and decode, and the ProtectedModel
+apply_fns.
 
 Params are nested dicts of tensors in the JAX package's layouts. Stage
 params keep JAX's leading repeats axis; the `lax.scan` over stages becomes
@@ -96,11 +97,13 @@ def _init_blocks(gen, pattern, cfg, device):
 
 def init_params(cfg, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict:
-    """Random params of `cfg`: drawn in fp32 on the CPU from `generator`
-    (a CPU torch.Generator; seed 0 when None), cast to the config's dtype
-    and moved to `device` (the card unless the caller asks for the CPU),
-    so one seed gives the same params on every device. Stage params are
-    stacked on a leading repeats axis."""
+    """Random params of `cfg`: drawn in fp32 from `generator` (a CPU
+    torch.Generator seeded 0 when None), cast to the config's dtype and
+    moved to `device` (the card unless the caller asks for the CPU). A
+    CPU generator draws on the host, so one seed gives the same params on
+    every device; a CUDA generator draws on its card (another stream, and
+    seconds instead of a minute for a model of billions of params). Stage
+    params are stacked on a leading repeats axis."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
@@ -292,7 +295,8 @@ def _stage_overrides(wcks: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
 
 def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
              positions=None):
-    """Shared trunk. tokens: (B, S). Returns (logits, sectioned
+    """Shared trunk. tokens: (B, S), or (B, S, K) for multi-codebook
+    archs (logits (B, S, K, V)). Returns (logits, sectioned
     ModelReport, new_caches); the JAX package's auxiliary loss belongs to
     the moe blocks, which are not ported. Report keys: "prefix" /
     "stages" (every repeat merged into one carry) / "rem", plus the LM
@@ -363,8 +367,9 @@ def _positions(position, device):
 
 
 def prefill(params, tokens, cfg, max_len: int):
-    """Fill caches for `tokens` (B, S); returns (last-position logits,
-    report, caches), the cache buffers sized to max_len."""
+    """Fill caches for `tokens` (B, S) or (B, S, K); returns
+    (last-position logits, report, caches), the cache buffers sized to
+    max_len."""
     with torch.no_grad(), fp32_ieee():
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
         logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
@@ -373,9 +378,10 @@ def prefill(params, tokens, cfg, max_len: int):
 
 
 def decode_step(params, tokens, caches, position, cfg):
-    """One decode step. tokens: (B, 1); position: an int (synchronized
-    batch) or a (B,) tensor (per-slot continuous batching) write position.
-    Returns (logits (B, 1, V), report, caches)."""
+    """One decode step. tokens: (B, 1) or (B, 1, K); position: an int
+    (synchronized batch) or a (B,) tensor (per-slot continuous batching)
+    write position. Returns (logits (B, 1, V) or (B, 1, K, V), report,
+    caches)."""
     with torch.no_grad(), fp32_ieee():
         positions, cp = _positions(position, tokens.device)
         logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
@@ -384,11 +390,12 @@ def decode_step(params, tokens, caches, position, cfg):
 
 
 def forward_train(params, tokens, cfg):
-    """tokens: (B, S) -> (logits (B, S, V) fp32, FaultReport, aux), with
-    autograd through every op (the caller takes the gradients). The
-    report keeps the scalar FaultReport contract (step runners and the
-    microbatch loop merge it); use `train_apply` + core.ProtectedModel
-    for the sectioned / deferred workflow. aux is the JAX package's MoE
+    """tokens: (B, S) or (B, S, K) -> (logits (B, S, V) or (B, S, K, V)
+    fp32, FaultReport, aux), with autograd through every op (the caller
+    takes the gradients). The report keeps the scalar FaultReport
+    contract (step runners and the microbatch loop merge it); use
+    `train_apply` + core.ProtectedModel for the sectioned / deferred
+    workflow. aux is the JAX package's MoE
     load-balancing loss, 0 here (no moe blocks are ported). `cfg.remat`
     has no effect: an eager backward keeps the forward's activations."""
     with fp32_ieee():

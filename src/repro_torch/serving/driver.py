@@ -153,8 +153,10 @@ class ServingDriver(ProtectedSession):
         self._busy_since: Optional[float] = None
         self._runner_t: Optional[threading.Thread] = None
         self._ctrl_t: Optional[threading.Thread] = None
-        # decode inputs stay on the device between steps; a prefill's
-        # token is merged into a copy (the in-flight step keeps its own)
+        # decode inputs, (slots, 1) or (slots, 1, K), stay on the device
+        # between steps; a prefill's token (a K-vector for a
+        # multi-codebook arch) is merged into a copy (the in-flight step
+        # keeps its own)
         self._d_tokens = torch.as_tensor(self._h_tokens, device=self.device)
 
     # -- lifecycle ---------------------------------------------------------

@@ -1,8 +1,9 @@
 """Slot scheduler for continuous batching (twin of
 repro.serving.scheduler; host-side bookkeeping only).
 
-Decode runs at a fixed (slots, 1) token shape; what changes between steps
-is which requests occupy which slots. The
+Decode runs at a fixed (slots, 1) token shape ((slots, 1, K) for a
+multi-codebook arch, whose prompts are (S, K) arrays of length S); what
+changes between steps is which requests occupy which slots. The
 scheduler owns that mapping: an admission FIFO, per-slot prompt lengths,
 eviction on EOS/max-len, and refill from the queue each step. Prompt
 shapes are bucketed (next power of two, clamped to max_len) so the number

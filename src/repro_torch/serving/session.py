@@ -1,7 +1,9 @@
 """ProtectedSession: continuous-batching serving through the deferred
 ProtectedModel path (twin of repro.serving.session).
 
-One decode step runs at a fixed (slots, 1) token shape: the slot scheduler
+One decode step runs at a fixed (slots, 1) token shape ((slots, 1, K) for
+a multi-codebook arch, whose requests are emitted K-lists of tokens and
+whose prompts are (S, K) arrays of length S): the slot scheduler
 admits queued requests into free slots, each admission runs a batch-1
 prefill (bucketed prompt length, the last real row as an argument; the
 prompt's own length for recurrent models) whose caches - KV rows, or an
@@ -112,7 +114,9 @@ class ProtectedSession:
                                    params_fn=lambda s: s,
                                    stats=self.stats.counters)
         self._caches = M.init_caches(cfg, slots, max_len, self.device)
-        self._h_tokens = np.zeros((slots, 1), np.int64)
+        k = cfg.num_codebooks
+        self._h_tokens = np.zeros((slots, 1, k) if k else (slots, 1),
+                                  np.int64)
         self._h_positions = np.zeros((slots,), np.int64)
         self._t0 = time.perf_counter()
         self._step_count = 0
@@ -248,11 +252,14 @@ class ProtectedSession:
         rec.finish_reason = reason
 
     def _emit(self, req, tok, next_pos: int) -> Optional[str]:
-        """Append one emitted token; returns a finish reason or None.
-        `next_pos` is the cache position the next decode write would use."""
+        """Append one emitted token (a K-list for a multi-codebook arch);
+        returns a finish reason or None. `next_pos` is the cache position
+        the next decode write would use. EOS stops scalar tokens only."""
         rec = self.stats.record(req.id)
-        rec.tokens.append(int(tok))
-        if req.eos_id is not None and int(tok) == req.eos_id:
+        rec.tokens.append(int(tok) if np.ndim(tok) == 0 else
+                          np.asarray(tok).tolist())
+        if (req.eos_id is not None and np.ndim(tok) == 0
+                and int(tok) == req.eos_id):
             return "eos"
         if rec.tokens_generated >= req.max_new_tokens:
             return "length"
@@ -264,7 +271,7 @@ class ProtectedSession:
         """Host-side prefill prep: the bucket and the padded token buffer."""
         plen = req.prompt_len
         bucket = self.scheduler.bucket(plen)
-        toks = np.zeros((1, bucket), np.int64)
+        toks = np.zeros((1, bucket) + req.tokens.shape[1:], np.int64)
         toks[0, :plen] = req.tokens
         return bucket, toks
 
@@ -413,17 +420,23 @@ def greedy_reference(params, cfg, prompt, max_new_tokens: int,
     toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
                            device=dev)[None]
     plen = int(toks.shape[1])
+
+    def host(t):
+        t = t[0, 0]
+        return int(t) if t.dim() == 0 else t.tolist()
+
     logits, _, caches = M.prefill(params, toks, cfg, max_len)
     nxt = torch.argmax(logits, dim=-1)
-    out = [int(nxt[0, 0])]
+    out = [host(nxt)]
     pos = plen
     while True:
-        if eos_id is not None and out[-1] == eos_id:
+        if (eos_id is not None and np.ndim(out[-1]) == 0
+                and out[-1] == eos_id):
             break
         if len(out) >= max_new_tokens or pos >= max_len:
             break
         logits, _, caches = M.decode_step(params, nxt, caches, pos, cfg)
         nxt = torch.argmax(logits, dim=-1)
-        out.append(int(nxt[0, 0]))
+        out.append(host(nxt))
         pos += 1
     return out

@@ -39,6 +39,7 @@ class RequestRecord:
     # "eos" | "length" | "max_len" | "dropped" | "timeout" | "rejected"
     finish_reason: Optional[str] = None
     deadline_s: Optional[float] = None       # TTL granted at submit
+    # emitted tokens: ints, or K-lists for a multi-codebook arch
     tokens: List = dataclasses.field(default_factory=list)
     prefill_detected: int = 0
     faults_detected: int = 0                 # steps whose fault hit this slot

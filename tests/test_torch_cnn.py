@@ -9,6 +9,7 @@ pinned; the JAX side runs with it off - its interpret-mode kernels are held
 shape for shape in test_torch_kernels.py - and with jit disabled, so each
 lax.cond runs only its live branch."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,7 +23,8 @@ from repro.models import cnn as jcnn  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.core import workflow as twf  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
-from torch_parity import assert_close, normal, to_np  # noqa: E402
+from torch_parity import (assert_close, normal,  # noqa: E402
+                          shared_reference, to_np)
 
 SCALE, BATCH = 0.12, 2
 # injection layers share their output shape, so the JAX side compiles the
@@ -54,9 +56,13 @@ class Model:
     jp: dict
     x: np.ndarray
     tplan: object
-    jplan: object
     layers: tuple
-    jax_clean: dict = dataclasses.field(default_factory=dict)
+
+    @functools.cached_property
+    def jplan(self):
+        """The JAX package's plan, built where a test or a shared
+        reference needs it."""
+        return jcore.build_plan(self.jp, self.cfg_j, batch=BATCH)
 
     def jax_forward(self, mode, layer=-1, o=None, plan=None):
         with jax.disable_jit():
@@ -108,7 +114,7 @@ def model(request):
     x = normal(1, (BATCH, 3, img, img))
     return Model(arch, cfg_t, cfg_j, params_np, tp, jp, x,
                  tcore.build_plan(tp, cfg_t, batch=BATCH, device="cpu"),
-                 jcore.build_plan(jp, cfg_j, batch=BATCH), layers)
+                 layers)
 
 
 def _logit_tol(ref):
@@ -141,17 +147,39 @@ def test_plan_matches_jax(model):
 
 
 @pytest.fixture(scope="module")
-def jax_clean(model):
-    return {mode: model.jax_forward(mode) for mode in MODES}
+def jax_ref(model, tmp_path_factory):
+    """Every JAX forward the model's tests compare with, run in one process
+    (the eager forwards share their per-op compiles) once per pytest run
+    and shared with every xdist worker (torch_parity.shared_reference):
+    the clean forward in both modes, each injection of
+    test_injected_forward_matches_jax in both modes, and the per_layer
+    forward of test_jax_plan_files_load_in_the_port. The injected outputs
+    are the port's clean conv outputs with numpy-made deltas, as the
+    tests make them."""
+    def build():
+        out = {"clean": {mode: model.jax_forward(mode) for mode in MODES},
+               "injected": {}}
+        for which, layer in enumerate(model.layers):
+            o_bad = _injected(model, layer, seed=layer + which)
+            out["injected"][which] = {
+                mode: model.jax_forward(mode, layer, o_bad)
+                for mode in MODES}
+        layer = model.layers[0]
+        out["plan_file"] = model.jax_forward(
+            "per_layer", layer, _injected(model, layer, seed=7))
+        return out
+
+    return shared_reference(tmp_path_factory, f"cnn_{model.arch}_jax",
+                            build)
 
 
 @pytest.mark.parametrize("fused", [False, True])
-def test_clean_forward_matches_jax(model, jax_clean, fused):
+def test_clean_forward_matches_jax(model, jax_ref, fused):
     off = dataclasses.replace(model.cfg_t, abft=False)
     l_off, _ = tcnn.forward_cnn(model.tp, torch.as_tensor(model.x), off,
                                 device="cpu")
     for mode in MODES:
-        jl, jsum = jax_clean[mode]
+        jl, jsum = jax_ref["clean"][mode]
         tl, tsum = model.torch_forward(mode, fused=fused)
         assert tsum == jsum
         assert all(v == (0, "none", 0) for v in tsum.values())
@@ -179,12 +207,12 @@ def _injected(model, layer: int, seed: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("which", [0, 1])
-def test_injected_forward_matches_jax(model, jax_clean, which):
+def test_injected_forward_matches_jax(model, jax_ref, which):
     layer = model.layers[which]
     o_bad = _injected(model, layer, seed=layer + which)
-    jl_clean = jax_clean["per_layer"][0]
+    jl_clean = jax_ref["clean"]["per_layer"][0]
     for mode in MODES:
-        jl, jsum = model.jax_forward(mode, layer, o_bad)
+        jl, jsum = jax_ref["injected"][which][mode]
         assert jsum[f"conv{layer}"][0] == 1 and jsum[f"conv{layer}"][2] == 0
         for fused in (False, True):
             tl, tsum = model.torch_forward(mode, fused, layer, o_bad)
@@ -193,7 +221,7 @@ def test_injected_forward_matches_jax(model, jax_clean, which):
             np.testing.assert_allclose(tl, jl_clean, **_logit_tol(jl_clean))
 
 
-def test_jax_plan_files_load_in_the_port(model, tmp_path):
+def test_jax_plan_files_load_in_the_port(model, jax_ref, tmp_path):
     """A plan saved by the JAX package's build_plan loads in the port and
     gives the same verdicts; the port's saved plan loads back in JAX."""
     path = str(tmp_path / "jplan.json")
@@ -206,7 +234,7 @@ def test_jax_plan_files_load_in_the_port(model, tmp_path):
     loaded.validate(model.tp)
     layer = model.layers[0]
     o_bad = _injected(model, layer, seed=7)
-    jl, jsum = model.jax_forward("per_layer", layer, o_bad)
+    jl, jsum = jax_ref["plan_file"]
     tl, tsum = model.torch_forward("per_layer", True, layer, o_bad,
                                    plan=loaded)
     assert tsum == jsum

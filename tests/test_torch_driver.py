@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 import repro.configs as JCF  # noqa: E402
 from repro.models import transformer as JM  # noqa: E402
@@ -27,22 +28,52 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.serving import (ProtectedSession, ServingDriver,  # noqa: E402
                                  SubmitVerdict, greedy_reference)
-from torch_parity import tree_np  # noqa: E402
+from torch_parity import shared_reference, tree_np  # noqa: E402
 
 ARCH = "smollm-360m-smoke"
 MAX_LEN = 24
 LENS = (5, 8, 6, 11, 4, 9)
 
 
+# the JAX package's greedy_reference tokens of the prompts of these
+# lengths (seed 1, 4 new tokens each), shared with the other smoke-model
+# serving file: its prompts are the first of these
+GREEDY_LENS = (5, 8, 6, 11, 4, 9)
+
+
 @pytest.fixture(scope="module")
-def served():
-    """(cfg, JAX params, port params, port plan) of the smoke model."""
+def served(tmp_path_factory):
+    """(cfg, JAX params, port params, port plan) of the smoke model; the
+    JAX package's params drawn once per pytest run and shared with every
+    xdist worker (torch_parity.shared_reference)."""
     cfg_j = JCF.get(ARCH)
-    pj = JM.init_params(jax.random.PRNGKey(0), cfg_j)
+    pn = shared_reference(
+        tmp_path_factory, "smollm-360m-smoke_params",
+        lambda: tree_np(JM.init_params(jax.random.PRNGKey(0), cfg_j)))
+    pj = jax.tree.map(jnp.asarray, pn)
     cfg = TCF.get(ARCH)
-    params = TM.params_from_numpy(tree_np(pj), device="cpu")
+    params = TM.params_from_numpy(pn, device="cpu")
     plan = tcore.build_plan(params, cfg, batch=2, seq=MAX_LEN, device="cpu")
     return cfg, pj, params, plan
+
+
+@pytest.fixture(scope="module")
+def jax_greedy_tokens(served, tmp_path_factory):
+    """{prompt length: (prompt, the JAX package's greedy_reference
+    tokens)} for the prompts of GREEDY_LENS, once per pytest run."""
+    cfg, pj, _, _ = served
+    ucfg_j = JCF.get(ARCH).replace(abft=False)
+    return shared_reference(
+        tmp_path_factory, "smollm-360m-smoke_greedy",
+        lambda: {len(p): (p, jax_greedy(pj, ucfg_j, p, 4, MAX_LEN))
+                 for p in _prompts(cfg, GREEDY_LENS)})
+
+
+def _jax_greedy_of(tokens, p):
+    """The shared JAX greedy tokens of prompt `p` (4 new tokens)."""
+    prompt, want = tokens[len(p)]
+    assert np.array_equal(prompt, p)
+    return want
 
 
 def _prompts(cfg, lens, seed=1):
@@ -153,12 +184,13 @@ def test_driver_step_surface_disabled(served):
 @pytest.mark.parametrize("kernels,sync_lag",
                          [(False, 1), (True, 1), (False, 0)],
                          ids=["plain", "kernels", "sync_lag0"])
-def test_driver_drain_finishes_all_with_parity(served, kernels, sync_lag):
+def test_driver_drain_finishes_all_with_parity(served, kernels, sync_lag,
+                                               request):
     """More requests than slots: drain serves every one (no drops, no
     timeouts), each request's tokens equal the port's ProtectedSession's,
     its unbatched unprotected greedy_reference's and (plain route) the
     JAX package's, and every forward made one host read."""
-    cfg, pj, params, plan = served
+    cfg, _, params, plan = served
     if kernels:
         plan = tcore.force_fused_matmul(plan)
     gen = 4
@@ -183,13 +215,13 @@ def test_driver_drain_finishes_all_with_parity(served, kernels, sync_lag):
     rids = [sess.submit(p, max_new_tokens=gen) for p in prompts]
     sess.run()
     ucfg = cfg.replace(abft=False)
-    ucfg_j = JCF.get(ARCH).replace(abft=False)
     for v, rid, p in zip(verdicts, rids, prompts):
         want = greedy_reference(params, ucfg, p, gen, MAX_LEN)
         assert d.tokens_for(v.rid) == want, f"driver {v.rid} diverged"
         assert sess.tokens_for(rid) == want
         if not kernels and sync_lag:
-            assert want == jax_greedy(pj, ucfg_j, p, gen, MAX_LEN)
+            assert want == _jax_greedy_of(
+                request.getfixturevalue("jax_greedy_tokens"), p)
     recs = {r["id"]: r for r in report["requests"]}
     for v in verdicts:
         r = recs[v.rid]

@@ -770,6 +770,110 @@ def test_rglru_serving_on_card(cuda_device):
     assert tokens["deferred"] == tokens["per_layer"]
 
 
+# MusicGen-large's GEMM sites (attention 2048 x 2048, gate/up and the
+# 4-codebook head 2048 x 8192, down 8192 x 2048) at a decode step's 8 rows
+# and a 128-row prefill bucket; 1024-wide column chunks
+MUSICGEN_SITES = [(8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048),
+                  (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048)]
+
+
+@pytest.mark.parametrize("n,k,m", MUSICGEN_SITES)
+def test_detect_at_musicgen_shapes_on_card(cuda_device, n, k, m):
+    """abft_matmul_detect at MusicGen-large's shapes against its plain
+    version: flags equal and clear, O within one bf16 ulp plus the fp32
+    summation noise and bitwise abft_matmul's; checksums predicting +1e4
+    at one element flag exactly that element's chunk."""
+    from repro_torch.core.plan import calibrate_tau_factor
+    from repro_torch.core.protected import pick_chunk
+    from repro_torch.core import thresholds as TTH
+    bf16 = torch.bfloat16
+    d = torch.as_tensor(normal(n, (n, k))).to(cuda_device, bf16)
+    w = torch.as_tensor(normal(m, (k, m)) * k ** -0.5).to(cuda_device, bf16)
+    rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+    cs = _chunk_checksums(d, w, rb, cb)
+    o, flag, _ = TAM.abft_matmul_detect(d, w, *cs, rb, cb, tau_a, tau_b)
+    o_r, flag_r, _ = tref.abft_matmul_detect_ref(d, w, *cs, rb, cb, tau_a,
+                                                  tau_b)
+    o_p, _ = TAM.abft_matmul(d, w, tops._tile(rb, 256), tops._tile(cb, 256))
+    torch.cuda.synchronize()
+    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+    assert torch.equal(o, o_p)
+    absdot = d.float().abs() @ w.float().abs()
+    tol = o_r.float().abs() * 2.0 ** -7 + 2.0 ** -21 * k ** 0.5 * absdot
+    assert bool(((o.float() - o_r.float()).abs() <= tol).all())
+    r, c = n - 3, m - 5
+    p = d.float() @ w.float()
+    p[r, c] += 1e4
+    bad = [*tref.chunk_sums_ref(p, rb, cb)[:3], cs[3]]
+    _, flag_t, _ = TAM.abft_matmul_detect(d, w, *bad, rb, cb, tau_a, tau_b)
+    want = torch.zeros_like(flag_t)
+    want[r // rb, c // cb] = 1
+    assert torch.equal(flag_t, want)
+
+
+def test_musicgen_serving_on_card(cuda_device):
+    """The reduced MusicGen-large in bf16 served on the card through the
+    kernels with (S, 4) prompts: zero clean flags, every protected site of
+    every deferred forward on abft_matmul_detect (15 per forward: 7 sites
+    x 2 repeats + the K·V head) and of every per_layer forward on
+    abft_matmul, K-list tokens, the same ones in both modes."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("musicgen-large-smoke").replace(dtype="bfloat16")
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=4, seq=32, device=cuda_device))
+    assert len(plan) == 8
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n, 4))
+               for n in (5, 9, 13, 7, 3)]
+    tokens = {}
+    for mode in ("deferred", "per_layer"):
+        TAM.LAUNCHES = TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+        sess = ProtectedSession(params, cfg, plan, slots=4, max_len=32,
+                                correction=mode, device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=6) for p in prompts]
+        report = sess.run()
+        c = report["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        assert c["faults_detected"] == 0 and report["completed"] == 5
+        if mode == "deferred":
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (15 * forwards, 0)
+            assert TW.HOST_READS == forwards
+        else:
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (0, 15 * forwards)
+            assert TW.HOST_READS == 15 * forwards
+        tokens[mode] = [sess.tokens_for(r) for r in rids]
+        assert all(len(t) == 6 and all(len(x) == 4 for x in t)
+                   for t in tokens[mode])
+    assert tokens["deferred"] == tokens["per_layer"]
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large-smoke",
+                                  "mamba2-1.3b-smoke",
+                                  "recurrentgemma-2b-smoke"])
+def test_init_draws_on_a_card_generator(cuda_device, arch):
+    """init_params with a CUDA generator draws on its card: one seed gives
+    the same params twice, every leaf on the card; a CPU generator still
+    gives the host's draws, moved to the card bitwise."""
+    import repro_torch.configs as TCF
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import transformer as TM
+    cfg = TCF.get(arch)
+    card = [TM.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device) for _ in range(2)]
+    for x, y in zip(*map(tree_leaves, card)):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+    host = [TM.init_params(cfg, torch.Generator().manual_seed(0),
+                           device=dev) for dev in (cuda_device, "cpu")]
+    for x, y in zip(*map(tree_leaves, host)):
+        assert x.device.type == "cuda" and torch.equal(x.cpu(), y)
+
+
 @pytest.mark.parametrize("layer", ["matmul", "conv", "transformer_gemm"])
 def test_campaign_cell_per_layer_on_card(cuda_device, layer):
     """64 trials of every registered arm of one layer on the card, in the

@@ -34,7 +34,7 @@ from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.core import workflow as twf  # noqa: E402
 from repro_torch.core.cost_model import shape_bytes, shape_flops  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
-from torch_parity import normal, to_np  # noqa: E402
+from torch_parity import normal, shared_reference, to_np  # noqa: E402
 
 SCALE, IMG, BATCH = 0.12, 48, 2
 MODES = ("per_layer", "deferred")
@@ -183,13 +183,59 @@ def _summary(rep):
     return {n: tuple(v.values()) for n, v in rep.summary().items()}
 
 
+def _mixed_burst(mixed, plan, membership):
+    """(layer, corrupted output) of the first conv of `membership` in the
+    mixed plan: a burst over three channels of image 0 at one position,
+    numpy-made deltas on the port's clean conv output."""
+    convs = [n for n in plan.names() if n.startswith("conv")
+             and (plan[n].execution == "per_layer")
+             == (membership == "per_layer")]
+    assert convs, f"no {membership} conv"
+    layer = int(convs[0][len("conv"):])
+    _, o = tcnn.conv_output_at(mixed.tp, torch.as_tensor(mixed.x),
+                               mixed.cfg_t, layer)
+    o = to_np(o)
+    g = np.random.default_rng(layer)
+    n_, m_, e1, e2 = o.shape
+    y, xx = int(g.integers(e1)), int(g.integers(e2))
+    for c in g.choice(m_, size=3, replace=False):
+        o[0, int(c), y, xx] += float(g.uniform(10, 40))
+    return layer, o
+
+
+@pytest.fixture(scope="module")
+def mixed_jax(mixed, plans, tmp_path_factory):
+    """The JAX package's mixed deferred forwards (eager, so each lax.cond
+    runs its live branch), clean and with each membership's burst, run in
+    one process once per pytest run and shared with every xdist worker
+    (torch_parity.shared_reference): verdict summaries and logits."""
+    def build():
+        tp, jp = plans
+
+        def run(**inject):
+            with jax.disable_jit():
+                jl, jrep = jcnn.forward_cnn(
+                    mixed.jp, jnp.asarray(mixed.x), mixed.cfg_j, plan=jp,
+                    correction="deferred", **inject)
+            return np.asarray(jl), _summary(jrep)
+
+        out = {"clean": run()}
+        for membership in MODES:
+            layer, o = _mixed_burst(mixed, tp, membership)
+            out[membership] = run(inject_layer=layer,
+                                  inject_o=jnp.asarray(o))
+        return out
+
+    return shared_reference(tmp_path_factory, "plan_profile_mixed", build)
+
+
 def test_mixed_clean_forward_is_unprotected_with_inline_plus_one_reads(
-        mixed, plans):
+        mixed, plans, mixed_jax):
     """Clean, the mixed deferred forward's logits are bitwise the
     unprotected forward's, it makes one host read per inline member plus
     ONE for the deferred members (the JAX package's cond count), and its
     verdicts are the JAX package's."""
-    tp, jp = plans
+    tp, _ = plans
     x = torch.as_tensor(mixed.x)
     off = dataclasses.replace(mixed.cfg_t, abft=False)
     l_off, _ = tcnn.forward_cnn(mixed.tp, x, off, device="cpu")
@@ -200,43 +246,25 @@ def test_mixed_clean_forward_is_unprotected_with_inline_plus_one_reads(
     assert twf.HOST_READS == n_inline + 1
     assert torch.equal(l_mix, l_off)
     assert int(rep.detected) == 0 and int(rep.residual) == 0
-    with jax.disable_jit():
-        _, jrep = jcnn.forward_cnn(mixed.jp, jnp.asarray(mixed.x),
-                                   mixed.cfg_j, plan=jp,
-                                   correction="deferred")
-    assert _summary(rep) == _summary(jrep)
+    assert _summary(rep) == mixed_jax["clean"][1]
 
 
 @pytest.mark.parametrize("membership", MODES)
-def test_mixed_injection_gives_jax_verdicts(mixed, plans, membership):
+def test_mixed_injection_gives_jax_verdicts(mixed, plans, mixed_jax,
+                                            membership):
     """A burst at an inline conv corrects through its immediate ladder, a
     burst at a deferred conv through the model-level rerun: verdicts
     (detected, corrected_by, residual) layer by layer are the JAX
     package's on the same corrupted output."""
-    tp, jp = plans
-    convs = [n for n in tp.names() if n.startswith("conv")
-             and (tp[n].execution == "per_layer") == (membership == "per_layer")]
-    assert convs, f"no {membership} conv"
-    layer = int(convs[0][len("conv"):])
+    tp, _ = plans
+    layer, o = _mixed_burst(mixed, tp, membership)
     x = torch.as_tensor(mixed.x)
-    _, o = tcnn.conv_output_at(mixed.tp, x, mixed.cfg_t, layer)
-    o = to_np(o)
-    g = np.random.default_rng(layer)
-    n_, m_, e1, e2 = o.shape
-    y, xx = int(g.integers(e1)), int(g.integers(e2))
-    for c in g.choice(m_, size=3, replace=False):
-        o[0, int(c), y, xx] += float(g.uniform(10, 40))
     l_mix, rep = tcnn.forward_cnn(mixed.tp, x, mixed.cfg_t, plan=tp,
                                   correction="deferred", inject_layer=layer,
                                   inject_o=torch.as_tensor(o), device="cpu")
-    with jax.disable_jit():
-        jl, jrep = jcnn.forward_cnn(mixed.jp, jnp.asarray(mixed.x),
-                                    mixed.cfg_j, plan=jp,
-                                    correction="deferred",
-                                    inject_layer=layer,
-                                    inject_o=jnp.asarray(o))
+    jl, jsum = mixed_jax[membership]
     s = _summary(rep)
-    assert s == _summary(jrep)
+    assert s == jsum
     assert s[f"conv{layer}"][0] == 1 and s[f"conv{layer}"][2] == 0
     assert s[f"conv{layer}"][1] != "none"
     assert all(v[0] == 0 for k, v in s.items() if k != f"conv{layer}")

@@ -41,7 +41,6 @@ from repro.core import injection as jinj  # noqa: E402
 from repro.layers import attention as JA  # noqa: E402
 from repro.layers import rglru as JR  # noqa: E402
 from repro.models import transformer as JM  # noqa: E402
-from repro.serving import ProtectedSession as JSession  # noqa: E402
 import repro_torch.configs as TCF  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.core import injection as tinj  # noqa: E402
@@ -51,8 +50,9 @@ from repro_torch.layers import rglru as TR  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.serving import ProtectedSession  # noqa: E402
-from torch_parity import (assert_close, normal, to_np, tree_np,  # noqa: E402
-                          verdict)
+from torch_parity import (assert_close, normal,  # noqa: E402
+                          shared_reference, steady_jax_session, to_np,
+                          tree_np, verdict)
 
 ARCH = "recurrentgemma-2b-smoke"
 LAYERS = 5
@@ -68,23 +68,32 @@ def _cfgs():
             TCF.get(ARCH).replace(num_layers=LAYERS))
 
 
-@pytest.fixture(scope="module")
-def model():
-    """(JAX cfg, port cfg, JAX params, port params)."""
-    cfg_j, cfg_t = _cfgs()
+def _jax_params(cfg_j):
     pn = tree_np(jax.jit(JM.init_params, static_argnums=1)(
         jax.random.PRNGKey(0), cfg_j))
     pn["embed"]["table"] = pn["embed"]["table"] / 16
+    return pn
+
+
+@pytest.fixture(scope="module")
+def model(tmp_path_factory):
+    """(JAX cfg, port cfg, JAX params, port params): the JAX package's
+    random params, drawn once per pytest run and shared with every xdist
+    worker (torch_parity.shared_reference)."""
+    cfg_j, cfg_t = _cfgs()
+    pn = shared_reference(tmp_path_factory, "rglru_params",
+                          lambda: _jax_params(cfg_j))
     pj = jax.tree.map(jnp.asarray, pn)
     pt = TM.params_from_numpy(pn, device="cpu")
     return cfg_j, cfg_t, pj, pt
 
 
 @pytest.fixture(scope="module")
-def plans(model):
-    cfg_j, cfg_t, pj, pt = model
-    return (jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ),
-            tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu"))
+def plan_t(model):
+    """The port's plan; the JAX package's is built where a test or a
+    shared reference needs it."""
+    _, cfg_t, _, pt = model
+    return tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu")
 
 
 def _scale(x) -> float:
@@ -305,12 +314,12 @@ def test_full_width_shapes_and_types_match_jax():
 # the plan and the protected forward
 # ---------------------------------------------------------------------------
 
-def test_plan_matches_jax(model, plans, tmp_path):
+def test_plan_matches_jax(model, plan_t, tmp_path):
     """build_plan walks the same 40 sites with the same shapes, chunks and
     checksums (the five rec sites of each rec block among them), and a
     plan file of either package loads in the other."""
     cfg_j, cfg_t, pj, pt = model
-    plan_j, plan_t = plans
+    plan_j = jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ)
     assert list(plan_t.names()) == list(plan_j.names())
     # 4 rec blocks of 5 sites, one attn_swa of 4, 5 ffns of 3, the head
     assert len(plan_t) == 4 * 5 + 4 + 5 * 3 + 1
@@ -353,46 +362,63 @@ def _hook_t(o):
     return o
 
 
+GATE_A = f"{REC}/gate_a"
+
+
+def _jax_verdicts(model, mode):
+    """The JAX ProtectedModel's per-section verdicts, logits and recurrent
+    states with a fault at gate_a, run eagerly (jax.disable_jit)."""
+    cfg_j, cfg_t, pj, _ = model
+    plan_j = jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ)
+    tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size,
+                                               (1, SEQ))
+    pm_j = jcore.ProtectedModel(JM.prefill_apply(cfg_j, MAX_LEN), plan_j)
+    with jinj.fault_scope(GATE_A, _hook_j), jax.disable_jit():
+        (lj, cj), rj = pm_j(pj, jnp.asarray(tokens), correction=mode)
+    return {"verdicts": {k: verdict(v) for k, v in rj.by_layer.items()},
+            "logits": np.asarray(lj),
+            "states": {k: np.asarray(v) for k, v in _states(cj).items()}}
+
+
 @pytest.mark.parametrize("mode", ["per_layer", "deferred"])
-def test_protected_model_verdicts_match_jax(model, plans, mode):
+def test_protected_model_verdicts_match_jax(model, plan_t, mode,
+                                            tmp_path_factory):
     """Through ProtectedModel, with a fault at gate_a of the stage's one
     repeat (its first rec block), the port's per-section verdicts equal
     the JAX package's and the corrected logits and states agree. Clean,
     every section's verdict is (0, 0, 0), with one host read per site call
-    in per_layer mode (39 sites + the head) and one deferred."""
-    cfg_j, cfg_t, pj, pt = model
-    plan_j, plan_t = plans
+    in per_layer mode (39 sites + the head) and one deferred. The JAX
+    side runs once per pytest run (torch_parity.shared_reference)."""
+    _, cfg_t, _, pt = model
+    ref = shared_reference(tmp_path_factory, f"rglru_verdicts_{mode}",
+                           lambda: _jax_verdicts(model, mode))
     tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size,
                                                (1, SEQ))
     pm_t = tcore.ProtectedModel(TM.prefill_apply(cfg_t, MAX_LEN), plan_t)
-    pm_j = jcore.ProtectedModel(JM.prefill_apply(cfg_j, MAX_LEN), plan_j)
-    gate_a = f"{REC}/gate_a"
     TW.HOST_READS = 0
     with torch.no_grad():
         _, rt = pm_t(pt, torch.as_tensor(tokens), correction=mode)
     assert TW.HOST_READS == {"per_layer": 40, "deferred": 1}[mode]
     assert {k: verdict(v) for k, v in rt.by_layer.items()} == \
         {k: (0, 0, 0) for k in ("stages", "rem", HEAD)}
-    with jinj.fault_scope(gate_a, _hook_j), jax.disable_jit():
-        (lj, cj), rj = pm_j(pj, jnp.asarray(tokens), correction=mode)
-    with tinj.fault_scope(gate_a, _hook_t), torch.no_grad():
+    with tinj.fault_scope(GATE_A, _hook_t), torch.no_grad():
         (lt, ct), rt = pm_t(pt, torch.as_tensor(tokens), correction=mode)
     got = {k: verdict(v) for k, v in rt.by_layer.items()}
-    assert got == {k: verdict(v) for k, v in rj.by_layer.items()}
+    assert got == ref["verdicts"]
     assert {k for k, v in got.items() if v[0]} == {"stages"}
     assert all(v[2] == 0 for v in got.values())
-    _close(lt, lj, "logits")
-    sj = _states(cj)
+    _close(lt, ref["logits"], "logits")
     for k, v in _states(ct).items():
-        _close(v, sj[k], k)
+        _close(v, ref["states"][k], k)
 
 
-def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model, plans):
+def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model,
+                                                               plan_t):
     """With the kernels pinned (their plain versions here) clean per_layer
     and deferred prefills give bitwise equal logits and caches, equal to
     the unprotected prefill's, at an exact prefill length of 11."""
     _, cfg_t, _, pt = model
-    fused = tcore.force_fused_matmul(plans[1])
+    fused = tcore.force_fused_matmul(plan_t)
     toks = torch.as_tensor(
         np.random.default_rng(6).integers(0, cfg_t.vocab_size, (1, SEQ)))
     out = {}
@@ -444,17 +470,26 @@ def served_plan(model):
     return tcore.build_plan(pt, cfg_t, batch=2, seq=MAX_LEN, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_tokens(model):
+def _jax_session_tokens(model):
     """The JAX ProtectedSession's tokens per request, served with
     protection off (no plan, abft=False: its scheduling, exact prefills
-    and cache inserts as when protected)."""
+    and cache inserts as when protected), its decode steps completed
+    before the host moves the slots' positions
+    (torch_parity.steady_jax_session)."""
     cfg_j, cfg_t, pj, _ = model
-    js = JSession(pj, cfg_j.replace(abft=False), None, slots=2,
-                  max_len=MAX_LEN)
+    js = steady_jax_session(pj, cfg_j.replace(abft=False), None, slots=2,
+                            max_len=MAX_LEN)
     jr = [js.submit(p, max_new_tokens=GEN) for p in _prompts(cfg_t)]
     js.run()
     return [js.tokens_for(r) for r in jr]
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(model, tmp_path_factory):
+    """The JAX session's tokens, served once per pytest run
+    (torch_parity.shared_reference)."""
+    return shared_reference(tmp_path_factory, "rglru_session",
+                            lambda: _jax_session_tokens(model))
 
 
 @pytest.mark.parametrize("mode", ["per_layer", "deferred"])
@@ -523,3 +558,80 @@ def test_serve_cli_runs_recurrentgemma_on_the_cpu(capsys):
                  "--prompt-len", "10", "--gen", "3"])
     out = capsys.readouterr().out
     assert "generated (2, 3) tokens" in out and "faults=0" in out
+
+
+# ---------------------------------------------------------------------------
+# the JAX session's position race (ROADMAP 3.7), as a study
+# ---------------------------------------------------------------------------
+
+def _aligned_int32(n: int, align: int = 64) -> np.ndarray:
+    raw = np.zeros(n + align // 4, np.int32)
+    off = (-raw.ctypes.data % align) // 4
+    return raw[off:off + n]
+
+
+def _race_study(runs: int, load: int) -> None:
+    """Serve the session tests' requests `runs` times each through the JAX
+    session (its own position buffer; one made 64-byte aligned, which
+    jnp.asarray shares; the same under steady_jax_session) and the port's
+    per_layer and deferred sessions, beside `load` busy processes; print
+    each variant's distinct token lists."""
+    import json
+    import subprocess
+    import sys
+    from repro.serving import ProtectedSession as JSession
+    shared = 0
+    for _ in range(200):
+        a = np.zeros((2,), np.int32)
+        same = jnp.asarray(a).unsafe_buffer_pointer() == a.ctypes.data
+        assert same == (a.ctypes.data % 64 == 0)
+        shared += same
+    print(f"jnp.asarray shares a (2,) int32 host buffer in {shared} of 200 "
+          "arrays, exactly the 64-byte aligned ones")
+    cfg_j, cfg_t = _cfgs()
+    pn = _jax_params(cfg_j)
+    model = (cfg_j, cfg_t, jax.tree.map(jnp.asarray, pn),
+             TM.params_from_numpy(pn, device="cpu"))
+    plan = tcore.build_plan(model[3], cfg_t, batch=2, seq=MAX_LEN,
+                            device="cpu")
+
+    def jax_run(make, aligned):
+        js = make(model[2], cfg_j.replace(abft=False), None, slots=2,
+                  max_len=MAX_LEN)
+        if aligned:
+            js._h_positions = _aligned_int32(2)
+        rs = [js.submit(p, max_new_tokens=GEN) for p in _prompts(cfg_t)]
+        js.run()
+        return [js.tokens_for(r) for r in rs]
+
+    def port_run(mode):
+        sess, rids, _ = _serve_port(model, plan, mode)
+        return [sess.tokens_for(r) for r in rids]
+
+    variants = {
+        "jax": lambda: jax_run(JSession, False),
+        "jax, aligned positions": lambda: jax_run(JSession, True),
+        "steady jax, aligned positions":
+            lambda: jax_run(steady_jax_session, True),
+        "port per_layer": lambda: port_run("per_layer"),
+        "port deferred": lambda: port_run("deferred")}
+    busy = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(load)]
+    try:
+        for name, run in variants.items():
+            seen = sorted({json.dumps(run()) for _ in range(runs)})
+            print(f"{name}: {len(seen)} distinct of {runs} runs: {seen}")
+    finally:
+        for p in busy:
+            p.kill()
+            p.wait()
+
+
+if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description=_race_study.__doc__)
+    ap.add_argument("--runs", type=int, default=6)
+    ap.add_argument("--load", type=int, default=6,
+                    help="busy processes beside the sessions")
+    args = ap.parse_args()
+    _race_study(args.runs, args.load)

@@ -8,6 +8,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 import repro.configs as JCF  # noqa: E402
 from repro.models import transformer as JM  # noqa: E402
@@ -18,21 +19,51 @@ from repro_torch.core import injection as tinj  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.serving import (ProtectedSession, SlotScheduler,  # noqa: E402
                                  bucket_for, greedy_reference)
-from torch_parity import to_np, tree_np  # noqa: E402
+from torch_parity import shared_reference, to_np, tree_np  # noqa: E402
 
 ARCH = "smollm-360m-smoke"
 MAX_LEN = 24
 
 
+# the JAX package's greedy_reference tokens of the prompts of these
+# lengths (seed 1, 4 new tokens each), shared with the other smoke-model
+# serving file: its prompts are the first of these
+GREEDY_LENS = (5, 8, 6, 11, 4, 9)
+
+
 @pytest.fixture(scope="module")
-def served():
-    """(cfg, JAX params, port params, port plan) of the smoke model."""
+def served(tmp_path_factory):
+    """(cfg, JAX params, port params, port plan) of the smoke model; the
+    JAX package's params drawn once per pytest run and shared with every
+    xdist worker (torch_parity.shared_reference)."""
     cfg_j = JCF.get(ARCH)
-    pj = JM.init_params(jax.random.PRNGKey(0), cfg_j)
+    pn = shared_reference(
+        tmp_path_factory, "smollm-360m-smoke_params",
+        lambda: tree_np(JM.init_params(jax.random.PRNGKey(0), cfg_j)))
+    pj = jax.tree.map(jnp.asarray, pn)
     cfg = TCF.get(ARCH)
-    params = TM.params_from_numpy(tree_np(pj), device="cpu")
+    params = TM.params_from_numpy(pn, device="cpu")
     plan = tcore.build_plan(params, cfg, batch=2, seq=MAX_LEN, device="cpu")
     return cfg, pj, params, plan
+
+
+@pytest.fixture(scope="module")
+def jax_greedy_tokens(served, tmp_path_factory):
+    """{prompt length: (prompt, the JAX package's greedy_reference
+    tokens)} for the prompts of GREEDY_LENS, once per pytest run."""
+    cfg, pj, _, _ = served
+    ucfg_j = JCF.get(ARCH).replace(abft=False)
+    return shared_reference(
+        tmp_path_factory, "smollm-360m-smoke_greedy",
+        lambda: {len(p): (p, jax_greedy(pj, ucfg_j, p, 4, MAX_LEN))
+                 for p in _prompts(cfg, GREEDY_LENS)})
+
+
+def _jax_greedy_of(tokens, p):
+    """The shared JAX greedy tokens of prompt `p` (4 new tokens)."""
+    prompt, want = tokens[len(p)]
+    assert np.array_equal(prompt, p)
+    return want
 
 
 def _prompts(cfg, lens, seed=1):
@@ -97,13 +128,13 @@ def test_scheduler_buckets():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
-def test_session_mixed_prompts_clean_parity(served, kernels):
+def test_session_mixed_prompts_clean_parity(served, kernels, request):
     """More requests than slots, mixed prompt lengths: every request's
     tokens through the deferred protected session equal the port's
     unbatched unprotected greedy_reference and the JAX package's, with
     zero faults and zero drops. With the kernels pinned the prefills take
     the detect route and the 2-slot decode the partials route."""
-    cfg, pj, params, plan = served
+    cfg, _, params, plan = served
     if kernels:
         plan = tcore.force_fused_matmul(plan)
     gen = 4
@@ -125,8 +156,8 @@ def test_session_mixed_prompts_clean_parity(served, kernels):
         want = greedy_reference(params, ucfg, p, gen, MAX_LEN)
         assert sess.tokens_for(rid) == want, f"request {rid} diverged"
         if not kernels:
-            assert want == jax_greedy(pj, JCF.get(ARCH).replace(abft=False),
-                                      p, gen, MAX_LEN), rid
+            assert want == _jax_greedy_of(
+                request.getfixturevalue("jax_greedy_tokens"), p), rid
         r = recs[rid]
         assert r["ttft_s"] is not None and r["completed_at"] is not None
         assert r["tokens_generated"] == gen

@@ -24,7 +24,6 @@ import repro.core as jcore  # noqa: E402
 from repro.core import injection as jinj  # noqa: E402
 from repro.layers import ssm as JS  # noqa: E402
 from repro.models import transformer as JM  # noqa: E402
-from repro.serving import ProtectedSession as JSession  # noqa: E402
 import repro_torch.configs as TCF  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 from repro_torch.core import injection as tinj  # noqa: E402
@@ -33,8 +32,9 @@ from repro_torch.layers import ssm as TS  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.serving import ProtectedSession  # noqa: E402
-from torch_parity import (assert_close, normal, to_np, tree_np,  # noqa: E402
-                          verdict)
+from torch_parity import (assert_close, normal,  # noqa: E402
+                          shared_reference, steady_jax_session, to_np,
+                          tree_np, verdict)
 
 ARCH = "mamba2-1.3b-smoke"
 MAX_LEN = 24
@@ -46,19 +46,24 @@ RTOL = ATOL = 1e-5
 
 
 @pytest.fixture(scope="module")
-def model():
-    """(JAX cfg, port cfg, JAX params, port params)."""
+def model(tmp_path_factory):
+    """(JAX cfg, port cfg, JAX params, port params): the JAX package's
+    random params, drawn once per pytest run and shared with every xdist
+    worker (torch_parity.shared_reference)."""
     cfg_j, cfg_t = JCF.get(ARCH), TCF.get(ARCH)
-    pj = JM.init_params(jax.random.PRNGKey(0), cfg_j)
-    pt = TM.params_from_numpy(tree_np(pj), device="cpu")
-    return cfg_j, cfg_t, pj, pt
+    pn = shared_reference(
+        tmp_path_factory, "ssm_params",
+        lambda: tree_np(JM.init_params(jax.random.PRNGKey(0), cfg_j)))
+    return (cfg_j, cfg_t, jax.tree.map(jnp.asarray, pn),
+            TM.params_from_numpy(pn, device="cpu"))
 
 
 @pytest.fixture(scope="module")
-def plans(model):
-    cfg_j, cfg_t, pj, pt = model
-    return (jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ),
-            tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu"))
+def plan_t(model):
+    """The port's plan; the JAX package's is built where a test or a
+    shared reference needs it."""
+    _, cfg_t, _, pt = model
+    return tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu")
 
 
 def _scale(x) -> float:
@@ -231,11 +236,11 @@ def test_full_width_shapes_and_types_match_jax():
 # the plan and the protected forward
 # ---------------------------------------------------------------------------
 
-def test_plan_matches_jax(model, plans, tmp_path):
+def test_plan_matches_jax(model, plan_t, tmp_path):
     """build_plan walks the same sites with the same shapes, chunks and
     checksums, and a plan file of either package loads in the other."""
     cfg_j, cfg_t, pj, pt = model
-    plan_j, plan_t = plans
+    plan_j = jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ)
     assert list(plan_t.names()) == list(plan_j.names()) == \
         [IN_PROJ, OUT_PROJ, HEAD]
     spec = tcore.protection_spec(cfg_t, batch=1, seq=SEQ)
@@ -277,8 +282,10 @@ def _on_repeat(rep: int, reps: int, fn):
     return hook
 
 
-def _hook_j(o):
-    return o.at[0, 2, 5].add(jnp.asarray(50.0, o.dtype))
+def _add_j(delta):
+    """A JAX fault hook adding `delta` (traced: 0 leaves the site clean) at
+    one element of the site's output."""
+    return lambda o: o.at[0, 2, 5].add(delta.astype(o.dtype))
 
 
 def _hook_t(o):
@@ -287,62 +294,90 @@ def _hook_t(o):
     return o
 
 
+def _jax_verdicts(model, mode):
+    """The JAX ProtectedModel's per-section verdicts, logits and states of
+    a clean prefill and of ones with +50 at one element of repeat 1's
+    in_proj output or of the untied head's. A hook in a lax.scan body
+    fires in every repeat, so the JAX model runs its stages unrolled (the
+    same model). One jitted program serves the three runs: both sites
+    carry a fault hook whose delta is an argument, 0 where the run leaves
+    the site clean (the JAX package keeps an untouched output bitwise the
+    clean path's)."""
+    cfg_j, cfg_t, pj, _ = model
+    plan_j = jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ)
+    reps = cfg_t.stages()[1]
+    pm_j = jcore.ProtectedModel(
+        JM.prefill_apply(cfg_j.replace(scan_stages=False), MAX_LEN), plan_j)
+
+    def forward(p, t, d_in, d_head):
+        with jinj.fault_scope(IN_PROJ, _on_repeat(1, reps, _add_j(d_in))), \
+                jinj.fault_scope(HEAD, _add_j(d_head)):
+            return pm_j(p, t, correction=mode)
+
+    run = jax.jit(forward)
+    tokens = jnp.asarray(np.random.default_rng(3).integers(
+        0, cfg_t.vocab_size, (1, SEQ)))
+    out = {}
+    for path, deltas in ((None, (0.0, 0.0)), (IN_PROJ, (50.0, 0.0)),
+                         (HEAD, (0.0, 50.0))):
+        (lj, cj), rj = run(pj, tokens, *map(jnp.float32, deltas))
+        out[str(path)] = {
+            "verdicts": {k: verdict(v) for k, v in rj.by_layer.items()},
+            "logits": np.asarray(lj),
+            "state": tree_np(cj["stages"]["b0_ssm"])}
+    return out
+
+
 @pytest.mark.parametrize("mode", ["per_layer", "deferred"])
-def test_protected_model_verdicts_match_jax(model, plans, mode):
+def test_protected_model_verdicts_match_jax(model, plan_t, mode,
+                                            tmp_path_factory):
     """Through ProtectedModel, the port's per-section verdicts equal the
     JAX package's, clean, with a fault in repeat 1's in_proj and at the
     untied head; the corrected logits agree. Host reads: one per site call
-    in per_layer mode (2 sites x 2 repeats + the head), one deferred."""
-    cfg_j, cfg_t, pj, pt = model
-    plan_j, plan_t = plans
+    in per_layer mode (2 sites x 2 repeats + the head), one deferred. The
+    JAX side runs once per pytest run (torch_parity.shared_reference)."""
+    _, cfg_t, _, pt = model
+    ref = shared_reference(tmp_path_factory, f"ssm_verdicts_{mode}",
+                           lambda: _jax_verdicts(model, mode))
     reps = cfg_t.stages()[1]
     tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size,
                                                (1, SEQ))
     pm_t = tcore.ProtectedModel(TM.prefill_apply(cfg_t, MAX_LEN), plan_t)
     for path in (None, IN_PROJ, HEAD):
-        # a hook in a lax.scan body fires in every repeat: the JAX model
-        # runs its stages unrolled (the same model) where the fault must
-        # hit one repeat
-        unrolled = cfg_j.replace(scan_stages=path != IN_PROJ)
-        pm_j = jcore.ProtectedModel(JM.prefill_apply(unrolled, MAX_LEN),
-                                    plan_j)
         if path is None:
-            (lj, cj), rj = pm_j(pj, jnp.asarray(tokens), correction=mode)
             TW.HOST_READS = 0
             with torch.no_grad():
                 (lt, ct), rt = pm_t(pt, torch.as_tensor(tokens),
                                     correction=mode)
             assert TW.HOST_READS == {"per_layer": 5, "deferred": 1}[mode]
         else:
-            hj, ht = _hook_j, _hook_t
+            ht = _hook_t
             if path == IN_PROJ:
-                hj, ht = _on_repeat(1, reps, hj), _on_repeat(1, reps, ht)
-            with jinj.fault_scope(path, hj):
-                (lj, cj), rj = pm_j(pj, jnp.asarray(tokens),
-                                    correction=mode)
+                ht = _on_repeat(1, reps, ht)
             with tinj.fault_scope(path, ht), torch.no_grad():
                 (lt, ct), rt = pm_t(pt, torch.as_tensor(tokens),
                                     correction=mode)
-        want = {k: verdict(v) for k, v in rj.by_layer.items()}
+        want = ref[str(path)]
         got = {k: verdict(v) for k, v in rt.by_layer.items()}
-        assert got == want, path
+        assert got == want["verdicts"], path
         hit = {None: None, HEAD: HEAD, IN_PROJ: "stages"}[path]
         assert {k for k, v in got.items() if v[0]} == \
             ({hit} if hit else set())
         assert all(v[2] == 0 for v in got.values())
-        _close(lt, lj, f"logits {path}")
+        _close(lt, want["logits"], f"logits {path}")
         for k in ("h", "conv"):
-            _close(ct["stages"]["b0_ssm"][k], cj["stages"]["b0_ssm"][k],
+            _close(ct["stages"]["b0_ssm"][k], want["state"][k],
                    f"state {k} {path}")
 
 
-def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model, plans):
+def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model,
+                                                               plan_t):
     """With the kernels pinned (their plain versions here) clean per_layer
     and deferred prefills give bitwise equal logits and states, equal to
     the unprotected prefill's, at a prefill length that is no power of two
     (the scheduler's exact prefill)."""
     _, cfg_t, _, pt = model
-    fused = tcore.force_fused_matmul(plans[1])
+    fused = tcore.force_fused_matmul(plan_t)
     toks = torch.as_tensor(
         np.random.default_rng(6).integers(0, cfg_t.vocab_size, (1, SEQ)))
     out = {}
@@ -387,32 +422,41 @@ def _serve_port(model, plan, mode, hook=None, path=OUT_PROJ):
 
 
 @pytest.fixture(scope="module")
-def served_plans(model):
-    cfg_j, cfg_t, pj, pt = model
-    return (jcore.build_plan(pj, cfg_j, batch=2, seq=MAX_LEN),
-            tcore.build_plan(pt, cfg_t, batch=2, seq=MAX_LEN, device="cpu"))
+def served_plan(model):
+    _, cfg_t, _, pt = model
+    return tcore.build_plan(pt, cfg_t, batch=2, seq=MAX_LEN, device="cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_tokens(model, served_plans):
-    """The JAX ProtectedSession's tokens per request (deferred; its
-    per_layer session serves the same ones)."""
+def _jax_session_tokens(model):
+    """The JAX ProtectedSession's tokens per request, served with
+    protection off (no plan, abft=False: its scheduling, exact prefills
+    and cache inserts as when protected, and its clean protected sessions
+    serve the same tokens), its decode steps completed before the host
+    moves the slots' positions (torch_parity.steady_jax_session)."""
     cfg_j, cfg_t, pj, _ = model
-    js = JSession(pj, cfg_j, served_plans[0], slots=2, max_len=MAX_LEN,
-                  correction="deferred")
+    js = steady_jax_session(pj, cfg_j.replace(abft=False), None, slots=2,
+                            max_len=MAX_LEN)
     jr = [js.submit(p, max_new_tokens=GEN) for p in _prompts(cfg_t)]
     js.run()
     return [js.tokens_for(r) for r in jr]
 
 
+@pytest.fixture(scope="module")
+def jax_tokens(model, tmp_path_factory):
+    """The JAX session's tokens, served once per pytest run
+    (torch_parity.shared_reference)."""
+    return shared_reference(tmp_path_factory, "ssm_session",
+                            lambda: _jax_session_tokens(model))
+
+
 @pytest.mark.parametrize("mode", ["per_layer", "deferred"])
-def test_session_tokens_match_jax(model, served_plans, jax_tokens, mode):
+def test_session_tokens_match_jax(model, served_plan, jax_tokens, mode):
     """2 slots, prompts of 5, 9 and 3 tokens (exact prefills), 4 new
     tokens each: the third request is admitted after decode steps have
     run, so its conv tail is kept in float32 where the first two were
     rounded to the session's bfloat16 buffer, as in the JAX session. Every
     token equals the JAX ProtectedSession's; no flags."""
-    sess, rids, report = _serve_port(model, served_plans[1], mode)
+    sess, rids, report = _serve_port(model, served_plan, mode)
     assert report["counters"]["faults_detected"] == 0
     assert report["completed"] == len(LENS)
     assert sess.scheduler.exact_prefill
@@ -424,13 +468,13 @@ def test_session_tokens_match_jax(model, served_plans, jax_tokens, mode):
 
 @pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
 def test_session_decode_fault_in_the_state_path_keeps_the_stream(
-        model, served_plans, kernels):
+        model, served_plan, kernels):
     """+1e4 at one element of slot 1's out_proj row in one mid-stream
     decode step: detected, corrected with residual 0 and attributed to
     that slot's request alone, and every later token of every request
     equals the clean run's - the corrective rerun starts from the step's
     input state, not from the state the detect pass wrote."""
-    plan = served_plans[1]
+    plan = served_plan
     if kernels:
         plan = tcore.force_fused_matmul(plan)
     clean, rids, _ = _serve_port(model, plan, "deferred")

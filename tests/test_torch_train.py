@@ -42,8 +42,8 @@ from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
 from repro_torch.optim import OptConfig  # noqa: E402
 from repro_torch.runtime.ft import FTPolicy, StepRunner  # noqa: E402
-from torch_parity import (assert_close, normal, to_np, tree_np,  # noqa: E402
-                          verdict)
+from torch_parity import (assert_close, normal,  # noqa: E402
+                          shared_reference, to_np, tree_np, verdict)
 
 LR = 1e-3
 BATCH, SEQ = 4, 16
@@ -66,10 +66,28 @@ def _batch_t(tokens, labels):
 
 
 @pytest.fixture(scope="module")
-def ref():
-    """The JAX package's initial state, batch, one train step at
-    microbatches 1 and 2 (warmup 0, so the first step's lr is LR) and the
-    protected forward's logits - computed once.
+def ref(tmp_path_factory):
+    """The JAX package's initial state and batch as numpy arrays, made once
+    per pytest run and shared with every xdist worker
+    (torch_parity.shared_reference), and both packages' configs."""
+    def build():
+        cfg_j, _ = _cfgs()
+        state_j = JS.init_train_state(jax.random.PRNGKey(0), cfg_j,
+                                      JOpt(lr=LR))
+        tk, lb = j_host_batch(JData(vocab_size=cfg_j.vocab_size,
+                                    seq_len=SEQ, global_batch=BATCH), 0)
+        return {"state": tree_np(state_j), "tokens": np.array(tk),
+                "labels": np.array(lb)}
+
+    out = shared_reference(tmp_path_factory, "train_state", build)
+    out["cfg_j"], out["cfg_t"] = _cfgs()
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_steps(ref, tmp_path_factory):
+    """One JAX train step from `ref`'s state at microbatches 1 and 2
+    (warmup 0, so the first step's lr is LR), once per pytest run.
 
     The step at microbatches 1 runs protected. The one at 2 runs
     abft=False: a protected clean step is the plain one plus reads (the
@@ -78,27 +96,41 @@ def ref():
     costs half a minute of compile per jitted step. The full batch's
     grads are read back from the protected step's first moment: after one
     step m = (1 - b1) * clip(g), clip's scale from the step's gnorm."""
-    cfg_j, cfg_t = _cfgs()
-    opt_j = JOpt(lr=LR)
-    state_j = JS.init_train_state(jax.random.PRNGKey(0), cfg_j, opt_j)
-    tk, lb = j_host_batch(JData(vocab_size=cfg_j.vocab_size, seq_len=SEQ,
-                                global_batch=BATCH), 0)
-    out = {"cfg_j": cfg_j, "cfg_t": cfg_t, "state": tree_np(state_j),
-           "tokens": np.array(tk), "labels": np.array(lb)}
-    for mb, abft in ((1, True), (2, False)):
-        step = jax.jit(JS.make_train_step(cfg_j.replace(abft=abft), opt_j,
-                                          microbatches=mb, warmup=0))
-        new, m = step(state_j, {"tokens": tk, "labels": lb})
-        out[mb] = {"state": tree_np(new), "loss": float(m["loss"]),
-                   "gnorm": float(m["gnorm"]), "lr": float(m["lr"]),
-                   "report": verdict(m["report"])}
-    scale = min(1.0, opt_j.grad_clip / (out[1]["gnorm"] + 1e-9))
-    out["grads"] = {n: g / (1.0 - opt_j.b1) / scale for n, g in
-                    tree_flatten_with_path(out[1]["state"]["opt"]["m"])}
-    logits, rep, _ = jax.jit(lambda p, t: JM.forward_train(p, t, cfg_j))(
-        state_j["params"], tk)
-    out["logits"], out["logits_report"] = np.asarray(logits), verdict(rep)
-    return out
+    def build():
+        cfg_j, opt_j = ref["cfg_j"], JOpt(lr=LR)
+        state_j = jax.tree.map(jnp.asarray, ref["state"])
+        batch = {"tokens": jnp.asarray(ref["tokens"]),
+                 "labels": jnp.asarray(ref["labels"])}
+        out = {}
+        for mb, abft in ((1, True), (2, False)):
+            step = jax.jit(JS.make_train_step(cfg_j.replace(abft=abft),
+                                              opt_j, microbatches=mb,
+                                              warmup=0))
+            new, m = step(state_j, batch)
+            out[mb] = {"state": tree_np(new), "loss": float(m["loss"]),
+                       "gnorm": float(m["gnorm"]), "lr": float(m["lr"]),
+                       "report": verdict(m["report"])}
+        scale = min(1.0, opt_j.grad_clip / (out[1]["gnorm"] + 1e-9))
+        out["grads"] = {n: g / (1.0 - opt_j.b1) / scale for n, g in
+                        tree_flatten_with_path(out[1]["state"]["opt"]["m"])}
+        return out
+
+    return shared_reference(tmp_path_factory, "train_steps", build)
+
+
+@pytest.fixture(scope="module")
+def ref_logits(ref, tmp_path_factory):
+    """The JAX package's jitted protected forward_train on `ref`'s params
+    and batch: logits and verdict, once per pytest run."""
+    def build():
+        cfg_j = ref["cfg_j"]
+        params = jax.tree.map(jnp.asarray, ref["state"]["params"])
+        logits, rep, _ = jax.jit(
+            lambda p, t: JM.forward_train(p, t, cfg_j))(
+                params, jnp.asarray(ref["tokens"]))
+        return {"logits": np.asarray(logits), "report": verdict(rep)}
+
+    return shared_reference(tmp_path_factory, "train_logits", build)
 
 
 def _state_t(ref):
@@ -180,16 +212,16 @@ def test_abft_matmul_vjp_corrects_a_fault_in_the_backward(product):
 # forward_train, train_apply, the carry-across
 # --------------------------------------------------------------------------
 
-def test_forward_train_matches_jax(ref):
+def test_forward_train_matches_jax(ref, ref_logits):
     """Logits within rtol 1e-5, atol 1e-5 of the scale; both reports
     clean; aux 0; train_apply under ProtectedModel gives the same logits
     bitwise, per_layer and deferred."""
     st = _state_t(ref)
     tokens = torch.as_tensor(ref["tokens"])
     logits, rep, aux = TM.forward_train(st["params"], tokens, ref["cfg_t"])
-    scale = float(np.abs(ref["logits"]).max())
-    assert_close(logits, ref["logits"], 1e-5, 1e-5 * scale, "logits")
-    assert verdict(rep) == ref["logits_report"] == (0, 0, 0)
+    scale = float(np.abs(ref_logits["logits"]).max())
+    assert_close(logits, ref_logits["logits"], 1e-5, 1e-5 * scale, "logits")
+    assert verdict(rep) == ref_logits["report"] == (0, 0, 0)
     assert float(aux) == 0.0 and logits.dtype == torch.float32
     pm = tcore.ProtectedModel(TM.train_apply(ref["cfg_t"]))
     for mode in ("per_layer", "deferred"):
@@ -253,7 +285,7 @@ def test_cross_entropy_matches_jax():
 # one train step against the JAX package's
 # --------------------------------------------------------------------------
 
-def test_grads_match_jax(ref):
+def test_grads_match_jax(ref, ref_steps):
     """Grads of the full batch's loss against the JAX step's (read back
     from its first moment), rtol 1e-4 (atol 1e-4 of each leaf's scale)."""
     st = _state_t(ref)
@@ -264,20 +296,20 @@ def test_grads_match_jax(ref):
                                     ref["cfg_t"])
     loss = TS.cross_entropy(logits, torch.as_tensor(ref["labels"]))
     grads = torch.autograd.grad(loss, [p for _, p in leaves])
-    want = ref["grads"]
+    want = ref_steps["grads"]
     for (n, _), g in zip(leaves, grads):
         scale = float(np.abs(want[n]).max())
         assert_close(g, want[n], 1e-4, 1e-4 * scale, f"grad {n}")
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_jax(ref, microbatches):
+def test_train_step_matches_jax(ref, ref_steps, microbatches):
     """One protected step from the carried JAX state on the replayed JAX
-    batch (the JAX step: see `ref`): loss and gnorm within rtol 1e-5, the
-    report clean, the new params within rtol 1e-4 (atol 1e-4 lr) where
-    |g| > 1e-3 max|g| and within 2 lr elsewhere, and the step counters
-    equal."""
-    want = ref[microbatches]
+    batch (the JAX step: see `ref_steps`): loss and gnorm within rtol
+    1e-5, the report clean, the new params within rtol 1e-4 (atol 1e-4
+    lr) where |g| > 1e-3 max|g| and within 2 lr elsewhere, and the step
+    counters equal."""
+    want = ref_steps[microbatches]
     step = TS.make_train_step(ref["cfg_t"], OptConfig(lr=LR),
                               microbatches=microbatches, warmup=0)
     new, m = step(_state_t(ref), _batch_t(ref["tokens"], ref["labels"]))
@@ -287,7 +319,7 @@ def test_train_step_matches_jax(ref, microbatches):
     assert verdict(m["report"]) == want["report"] == (0, 0, 0)
     got = dict(tree_flatten_with_path(tree_np(new["params"])))
     for n, wp in tree_flatten_with_path(want["state"]["params"]):
-        g = np.abs(ref["grads"][n])
+        g = np.abs(ref_steps["grads"][n])
         big = g > 1e-3 * g.max()
         # atol 1e-4 of the step's size for a param the step takes to ~0
         np.testing.assert_allclose(got[n][big], wp[big], rtol=1e-4,

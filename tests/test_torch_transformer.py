@@ -27,7 +27,8 @@ from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core import injection as tinj  # noqa: E402
 from repro_torch.core import workflow as TW  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
-from torch_parity import assert_close, to_np, tree_np, verdict  # noqa: E402
+from torch_parity import (assert_close, shared_reference,  # noqa: E402
+                          to_np, tree_np, verdict)
 
 ARCH = "smollm-360m-smoke"
 MAX_LEN = 16
@@ -37,10 +38,16 @@ STAGE_SITE = "stages/b0_attn_full/attn/wq"
 
 
 @pytest.fixture(scope="module")
-def model():
+def model(tmp_path_factory):
+    """(JAX cfg, port cfg, JAX params, port params, tokens): the JAX
+    package's random params, drawn once per pytest run and shared with
+    every xdist worker (torch_parity.shared_reference)."""
     cfg_j, cfg_t = JCF.get(ARCH), TCF.get(ARCH)
-    pj = JM.init_params(jax.random.PRNGKey(0), cfg_j)
-    pt = TM.params_from_numpy(tree_np(pj), device="cpu")
+    pn = shared_reference(
+        tmp_path_factory, "smollm-360m-smoke_params",
+        lambda: tree_np(JM.init_params(jax.random.PRNGKey(0), cfg_j)))
+    pj = jax.tree.map(jnp.asarray, pn)
+    pt = TM.params_from_numpy(pn, device="cpu")
     tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size,
                                                (1, SEQ))
     return cfg_j, cfg_t, pj, pt, tokens
@@ -51,6 +58,13 @@ def plans(model):
     cfg_j, cfg_t, pj, pt, _ = model
     return (jcore.build_plan(pj, cfg_j, batch=1, seq=SEQ),
             tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def plan_t(model):
+    """The port's plan alone, for tests whose JAX side is shared."""
+    _, cfg_t, _, pt, _ = model
+    return tcore.build_plan(pt, cfg_t, batch=1, seq=SEQ, device="cpu")
 
 
 def test_configs_match_jax():
@@ -154,8 +168,10 @@ def test_jax_plan_files_load_in_the_port(model, plans, tmp_path):
     assert verdict(rep) == (0, 0, 0)
 
 
-def _hook_j(o):
-    return o.at[0, 2, 5].add(jnp.asarray(50.0, o.dtype))
+def _add_j(delta):
+    """A JAX fault hook adding `delta` (traced: 0 leaves the site clean) at
+    one element of the site's output."""
+    return lambda o: o.at[0, 2, 5].add(delta.astype(o.dtype))
 
 
 def _hook_t(o):
@@ -164,47 +180,76 @@ def _hook_t(o):
     return o
 
 
+def _jax_verdicts(model, mode):
+    """The JAX ProtectedModel's per-section verdicts and logits, clean and
+    with +50 at one element of the tied head's or a stage site's output
+    (firing in every repeat). One jitted program serves the three runs:
+    both sites carry a fault hook whose delta is an argument, 0 where the
+    run leaves the site clean (the JAX package keeps an untouched output
+    bitwise the clean path's); it gives the ModelReports of eager runs
+    with one hook each, for one compile instead of three."""
+    cfg_j, _, pj_, _, tokens = model
+    plan_j = jcore.build_plan(pj_, cfg_j, batch=1, seq=SEQ)
+    pm_j = jcore.ProtectedModel(JM.prefill_apply(cfg_j, MAX_LEN), plan_j)
+
+    def forward(p, t, d_head, d_site):
+        with jinj.fault_scope(HEAD, _add_j(d_head)), \
+                jinj.fault_scope(STAGE_SITE, _add_j(d_site)):
+            return pm_j(p, t, correction=mode)
+
+    run = jax.jit(forward)
+    out = {}
+    for path, deltas in ((None, (0.0, 0.0)), (HEAD, (50.0, 0.0)),
+                         (STAGE_SITE, (0.0, 50.0))):
+        (lj, _), rj = run(pj_, jnp.asarray(tokens),
+                          *map(jnp.float32, deltas))
+        out[str(path)] = {
+            "verdicts": {k: verdict(v) for k, v in rj.by_layer.items()},
+            "logits": np.asarray(lj)}
+    return out
+
+
 @pytest.mark.parametrize("mode", ["per_layer", "deferred"])
-def test_protected_model_verdicts_match_jax(model, plans, mode):
+def test_protected_model_verdicts_match_jax(model, plan_t, mode,
+                                            tmp_path_factory):
     """Through ProtectedModel, the port's per-section verdicts equal the
     JAX package's ModelReport, clean and with a fault_scope hook on the
     tied head and on a stage site (firing in every repeat); the corrected
-    logits agree with the JAX package's."""
-    cfg_j, cfg_t, pj_, pt, tokens = model
-    plan_j, plan_t = plans
-    pm_j = jcore.ProtectedModel(JM.prefill_apply(cfg_j, MAX_LEN), plan_j)
+    logits agree with the JAX package's. The JAX side runs once per
+    pytest run (torch_parity.shared_reference)."""
+    _, cfg_t, _, pt, tokens = model
+    ref = shared_reference(tmp_path_factory, f"transformer_verdicts_{mode}",
+                           lambda: _jax_verdicts(model, mode))
     pm_t = tcore.ProtectedModel(TM.prefill_apply(cfg_t, MAX_LEN), plan_t)
     for path in (None, HEAD, STAGE_SITE):
         if path is None:
-            (lj, _), rj = pm_j(pj_, jnp.asarray(tokens), correction=mode)
             with torch.no_grad():
                 (lt, _), rt = pm_t(pt, torch.as_tensor(tokens),
                                    correction=mode)
         else:
-            with jinj.fault_scope(path, _hook_j):
-                (lj, _), rj = pm_j(pj_, jnp.asarray(tokens),
-                                   correction=mode)
             with tinj.fault_scope(path, _hook_t), torch.no_grad():
                 (lt, _), rt = pm_t(pt, torch.as_tensor(tokens),
                                    correction=mode)
-        want = {k: verdict(v) for k, v in rj.by_layer.items()}
+        want = ref[str(path)]
         got = {k: verdict(v) for k, v in rt.by_layer.items()}
-        assert got == want, path
+        assert got == want["verdicts"], path
         hit = {None: None, HEAD: HEAD, STAGE_SITE: "stages"}[path]
         assert {k for k, v in got.items() if v[0]} == \
             ({hit} if hit else set())
         assert all(v[2] == 0 for v in got.values())
-        scale = float(np.abs(np.asarray(lj)).max())
+        lj = want["logits"]
+        scale = float(np.abs(lj).max())
         assert_close(lt, lj, 1e-4, 1e-4 * scale, f"logits {path}")
 
 
-def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model, plans):
+def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model,
+                                                               plan_t):
     """With the kernels pinned (their plain versions here), clean
     per_layer and deferred logits are bitwise equal, and equal to the
     unprotected forward's; the deferred detect pass ran the detect route
     (the prefill's 8 rows tile at the minimum)."""
     _, cfg_t, _, pt, tokens = model
-    fused = tcore.force_fused_matmul(plans[1])
+    fused = tcore.force_fused_matmul(plan_t)
     toks = torch.as_tensor(tokens)
     out = {}
     with torch.no_grad():
@@ -221,11 +266,11 @@ def test_kernel_route_is_bitwise_the_plain_one_inside_the_port(model, plans):
     assert torch.equal(out["per_layer"], lu)
 
 
-def test_host_reads_per_mode(model, plans):
+def test_host_reads_per_mode(model, plan_t):
     """One host read per protected site call in per_layer mode (7 sites
     in each of 2 repeats, plus the head) and one per deferred forward."""
     _, cfg_t, _, pt, tokens = model
-    pm = tcore.ProtectedModel(TM.prefill_apply(cfg_t, MAX_LEN), plans[1])
+    pm = tcore.ProtectedModel(TM.prefill_apply(cfg_t, MAX_LEN), plan_t)
     with torch.no_grad():
         for mode, want in (("per_layer", 15), ("deferred", 1)):
             TW.HOST_READS = 0
@@ -234,8 +279,10 @@ def test_host_reads_per_mode(model, plans):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    for arch in ("kimi-k2-1t-a32b-smoke", "musicgen-large-smoke"):
-        with pytest.raises(NotImplementedError, match="1.7"):
-            TM.init_params(TCF.get(arch), device="cpu")
+    """moe blocks (kimi-k2) still raise, naming their ROADMAP item;
+    musicgen's multi-codebook I/O is ported (tests/test_torch_musicgen.py
+    builds it)."""
+    with pytest.raises(NotImplementedError, match="1.7"):
+        TM.init_params(TCF.get("kimi-k2-1t-a32b-smoke"), device="cpu")
     with pytest.raises(NotImplementedError, match="1.7"):
         tcore.protection_spec(TCF.get("kimi-k2-1t-a32b-smoke"))

@@ -4,8 +4,10 @@ phases, to compare the phase times of two versions of the script.
 For the chip_smoke.py under TREE (this checkout, or another commit unpacked
 with `git archive` into a gitignored directory of it, such as
 build/parent), wraps each phase function that the tree's script has
-(phases 3, 3b, 3c, 3d, 4-5b, 6-7b, 8, 9, 10, 11, 12, 13; the build is
-timed as phase 2), runs the script's main with `--json OUT` when OUT is
+(phases 3, 3b, 3c, 3d, 3e, 4-5b, 6-7b, 8, 9, 10, 11, 12, 13, 14; the build
+is timed as phase 2; where the campaign runs in child processes beside
+phases 6-7b, "8-start" is their start and "8" the wait for them and the
+checks), runs the script's main with `--json OUT` when OUT is
 given, and prints, after the script's own output, one JSON line {"tree":
 ..., "phase_s": {phase: seconds}, "rc": exit code}. A failing phase is
 timed to its failure. Both trees build their kernels into their own
@@ -26,11 +28,13 @@ from pathlib import Path
 # phase label -> the function of chip_smoke.py that runs it
 PHASES = (("3", "check_checksum_reduce"), ("3", "check_abft_matmul"),
           ("3b", "check_serving_kernels"), ("3c", "check_mamba_kernels"),
-          ("3d", "check_rg_kernels"), ("4-5b", "run_slice"),
-          ("6-7b", "run_serving"), ("8", "run_campaign_phase"),
+          ("3d", "check_rg_kernels"), ("3e", "check_musicgen_kernels"),
+          ("4-5b", "run_slice"),
+          ("8-start", "start_campaign"), ("6-7b", "run_serving"),
+          ("8", "run_campaign_phase"),
           ("9", "run_calibrated_plan"), ("10", "run_driver_phase"),
           ("11", "run_training_phase"), ("12", "run_mamba_serving"),
-          ("13", "run_rg_serving"))
+          ("13", "run_rg_serving"), ("14", "run_musicgen_serving"))
 
 
 def main(tree: str, out: str = "") -> int:
