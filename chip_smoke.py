@@ -122,8 +122,8 @@ Phases, each fatal on failure:
      (batch 8 x seq 256) and the five GEMM shapes of phase 3b, in bf16 and
      f32: O, dD and dW against autograd of the plain product (one bf16
      ulp plus the fp32 summation noise; fp32 rtol 1e-5), 3 abft_matmul
-     launches per call (1 with
-     protect_backward off), clean reports, a registry burst in dW's and
+     launches per call (1 with protect_backward off, 4 where a burst's
+     ladder recomputes through the kernel), clean reports, a registry burst in dW's and
      in dD's output (fp32: detected, corrected with residual 0, the
      gradients back within tolerance; bf16: verdicts recorded, the
      reference's bf16 thresholds do not promise them, ROADMAP 3.5), and
@@ -168,14 +168,50 @@ Phases, each fatal on failure:
      per forward; the prefill drill at one repeat's attn_swa wk (the
      KV-cache write), the decode drill at one repeat's rec in_x (it feeds
      both the conv tail and h);
-  14. MusicGen-large at full width and depth in bf16 (48 layers of
-     attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
+  14. MusicGen-large at full width and 24 of its 48 layers in bf16
+     (attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
      the untied 2048 x 8192 head; random params drawn on the card from a
      seed), served as phase 12 with prompts of (16-128, 4) tokens and
-     K-list tokens out: 337 launches and reads per forward, every
+     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 169
+     launches and reads per forward, every
      codebook's served token teacher-forced within the bounds of phase
      12; the prefill drill at one repeat's attention wk, the decode drill
-     at one repeat's FFN up.
+     at one repeat's FFN up;
+  3f. (after 3e) the group-axis launches of abft_matmul_detect and
+     abft_matmul, one launch for all 384 experts of Kimi-K2 at
+     its expert shapes (gate/up 7168 x 2048, down 2048 x 7168) in bf16,
+     at 1, 2 and 3 rows per expert (a decode step's capacity, the prefill
+     buckets'): flags equal to the plain version's and clear on exact
+     per-expert checksums, +1e4 at one element of one expert flagging
+     exactly its chunk, O bitwise equal to 384 2-D launches and between
+     the two kernels, within one bf16 ulp plus the fp32 summation noise
+     (eps32 sqrt(K) sum |d w|) of the plain version; device ms
+     of the launch, of the 384 2-D launches, of torch.bmm and of the plain
+     versions beside the bound (11.3 GB of experts a launch);
+  3g. (after 3f) abft_matmul_detect and abft_matmul at Kimi-K2's 16
+     plain-matmul sites per forward (KIMI_SITES, the fp32 router 7168 x
+     384 on the fp32 route, the 7168 x 163840 head) at 8-128 rows,
+     checked as phase 3c;
+  15. Kimi-K2 at full width and 2 of its 61 layers in bf16 (the dense
+     prefix layer, then attention and a moe block of 384 experts, top-8,
+     with a shared expert; 19.58 G params drawn on the card from a seed),
+     served as phase 6 serves SmolLM-360M with the grouped expert GEMMs on
+     their plain route: 16 detect launches and 1 host read per deferred
+     forward, per_layer's same tokens with 19 reads (16 sites and 3
+     grouped), zero flags, no echo; teacher-forced with the session's
+     batch composition (the same slots, buckets and admissions), the
+     routed expert sets of the two routes compared and, over the forwards
+     where they agree, every served token within twice the routes' logit
+     gap there plus 0.1 of the unprotected top (a differing forward's
+     margins printed apart);
+     decode steps timed against the unprotected session over one wave of
+     the 8 slots (the first 8 requests, 32 tokens each), a profile of
+     one, the per-call expert re-encode's device ms; drills at the
+     repeat's attention wk (prefill), the fp32 router (decode: the
+     corrected routing is the clean run's) and the shared expert's down;
+     then a prefill with the grouped entries pinned to the group-axis
+     kernels in both modes (3 grouped launches, flags clear); peak memory
+     under 70 GiB.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -228,6 +264,9 @@ CAMPAIGN_LIMIT_S = 600
 # from 3 and 5 so that the run with phase 11 stays within its time on a
 # card whose host is slow (PERF.md §6)
 TIMED_ROUNDS = 2
+# the same for the timed sessions of phases 14 and 15, cut to one round to
+# keep the whole run near 600 s with phase 15 in it
+LATE_TIMED_ROUNDS = 1
 FAULTED_REPS = 3
 # card vs CPU, the campaign's 64 trials per arm and layer: the share of
 # trials whose corrected_by may differ (which rung first verifies a fix
@@ -305,6 +344,39 @@ MUSICGEN_SITES = (("wq/wk/wv/wo", 2048, 2048, False, 192),
                   ("down", 8192, 2048, False, 48),
                   ("head", 2048, 8192, False, 1))
 MUSICGEN_ROWS = SERVE_ROWS
+# depth of phase 14's MusicGen-large: its first 24 layers at full width
+# (cut from 48 to keep the run near half the driver's limit); phase 3e
+# keeps the full-depth counts
+MUSICGEN_LAYERS = 24
+# the MoE slice: Kimi-K2 at full width and 2 of its 61 layers (the dense
+# prefix layer, then one repeat of attention and a moe block of 384
+# experts, top-8, and a shared expert), bf16, served as phase 6 serves
+# SmolLM-360M; its plain-matmul sites per forward (prefix attention and
+# FFN 7, the repeat's attention 4, fp32 router 1, shared expert 3, the
+# untied head) and its grouped ones (the experts' gate, up and down)
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_LAYERS = 2
+MOE_MATMUL_SITES = 16
+MOE_GROUPED_SITES = 3
+# phase 3f: the group-axis kernels at its expert GEMMs, (label, K, M,
+# launches per forward), G = 384, at the rows per expert the session's
+# capacity gives: 1 in a decode step (round(1.25 x 8 x 8 / 384) -> 1), 1,
+# 1, 2 and 3 in the prefill buckets of 16, 32, 64 and 128 tokens
+MOE_EXPERTS = 384
+# phase 3g: the distinct shapes of its 16 plain-matmul sites per forward
+# (label, K, M, W read transposed, launches per forward[, operand type]):
+# the prefix's and the repeat's attention (64 heads and 8 KV heads of
+# 112), the prefix FFN's and the shared expert's gate/up and down (d_ff
+# 2048 both), the router in fp32 and the untied head
+KIMI_SITES = (("wq/wo", 7168, 7168, False, 4),
+              ("wk/wv", 7168, 896, False, 4),
+              ("ffn, shared: gate/up", 7168, 2048, False, 4),
+              ("ffn, shared: down", 2048, 7168, False, 2),
+              ("router", 7168, 384, False, 1, "float32"),
+              ("head", 7168, 163840, False, 1))
+MOE_SHAPES = (("gate/up", 7168, 2048, 2), ("down", 2048, 7168, 1))
+MOE_ROWS = (1, 2, 3)
+MOE_TIMED_ROWS = (1, 3)
 
 
 def log(*a):
@@ -963,9 +1035,9 @@ def check_serving_kernels(gen, report):
 # --------------------------------------------------------------------------
 
 def check_model_kernels(gen, report, key: str, sites, row_counts):
-    """abft_matmul_detect and abft_matmul (bf16) at one model's distinct
-    GEMM shapes (`sites`: label, K, M, W read transposed, launches per
-    forward) and at each of `row_counts` (a decode step's 8 rows, an odd
+    """abft_matmul_detect and abft_matmul at one model's distinct GEMM
+    shapes (`sites`: label, K, M, W read transposed, launches per forward
+    and, optionally, the operands' type name, bf16 otherwise) and at each of `row_counts` (a decode step's 8 rows, an odd
     exact prefill, 128): flags equal to the plain version's and clear, O
     within one bf16 ulp plus the fp32 summation noise of the plain
     version and bitwise equal between the two kernels, the partials
@@ -973,8 +1045,9 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
     predicting +1e4 at one element flag exactly its chunk. Per shape the
     device ms of both kernels, their plain versions and torch.matmul
     beside the bound, the detect pass's row segment and the partial
-    tiles; per row count the sums over one forward's launches. Written to
-    report[key]."""
+    tiles; per row count the sums over one forward's launches (their
+    operations priced at the bf16 rate, an fp32 site's scaled by the two
+    rates' ratio). Written to report[key]."""
     import torch
     from repro_torch import fp32_ieee
     from repro_torch.core.plan import calibrate_tau_factor
@@ -985,22 +1058,26 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
     from repro_torch.kernels.ref import (abft_matmul_detect_ref,
                                          abft_matmul_ref, chunk_sums_ref)
     bf16 = torch.bfloat16
-    launches = sum(site[-1] for site in sites)
+    launches = sum(site[4] for site in sites)
     rows, tot = [], {}
     with torch.no_grad(), fp32_ieee():
         for n in row_counts:
-            for label, k, m, transposed, count in sites:
-                d = torch.randn((n, k), generator=gen, device="cuda").to(bf16)
+            for label, k, m, transposed, count, *dt in sites:
+                dtype = getattr(torch, dt[0]) if dt else bf16
+                rate = (BF16_FLOPS_PER_S if dtype == bf16
+                        else FP32_FLOPS_PER_S)
+                eb = torch.empty((), dtype=dtype).element_size()
+                d = torch.randn((n, k), generator=gen, device="cuda").to(dtype)
                 store = (torch.randn((m, k) if transposed else (k, m),
                                      generator=gen, device="cuda")
-                         * k ** -0.5).to(bf16)
+                         * k ** -0.5).to(dtype)
                 view = (lambda t: t.T) if transposed else (lambda t: t)
                 w = view(store)
                 rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
                 bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
-                tiling = AM.kernel_tiling(n, k, m, bf16, cb)
+                tiling = AM.kernel_tiling(n, k, m, dtype, cb)
                 cs, sq = exact_chunk_checksums(d, w, rb, cb)
-                ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+                ta, tb = tau_scalar_coeffs(k, dtype, calibrate_tau_factor(k))
                 o, flag, score = AM.abft_matmul_detect(d, w, *cs, rb, cb,
                                                        ta, tb)
                 o_r, flag_r, score_r = abft_matmul_detect_ref(
@@ -1020,12 +1097,14 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
                                                      tb)
                 torch.cuda.synchronize()
                 what = f"{label} ({n}x{k})@({k}x{m})"
+                if dtype != bf16:
+                    what += f" {dt[0]}"
                 if not torch.equal(flag, flag_r) or int(flag.sum()):
                     fail(f"abft_matmul_detect {what}: flags {flag.tolist()} "
                          f"vs plain {flag_r.tolist()}")
-                if not grads_within(o, o_r, bf16, absdot, k):
-                    fail(f"abft_matmul_detect {what}: O beyond one bf16 ulp "
-                         f"plus the summation noise (max |err| "
+                if not grads_within(o, o_r, dtype, absdot, k):
+                    fail(f"abft_matmul_detect {what}: O beyond the rounding "
+                         f"of its type plus the summation noise (max |err| "
                          f"{max_err(o, o_r):.3g})")
                 if not torch.equal(o, o_mm):
                     fail(f"{what}: abft_matmul_detect and abft_matmul round O "
@@ -1046,7 +1125,7 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
                            else 1e-3 * k ** 0.5)
                     if g_.shape != r2.shape or not torch.allclose(
                             g_, r2, rtol=1e-5, atol=lim):
-                        fail(f"abft_matmul bf16 {what} {nm}: max |err| "
+                        fail(f"abft_matmul {what} {nm}: max |err| "
                              f"{max_err(g_, r2):.3g}")
                     e_p = max(e_p, max_err(g_, r2))
                 want = torch.zeros_like(flag_t)
@@ -1056,6 +1135,7 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
                          f"flags {flag_t.nonzero().tolist()}")
                 pbm, pbn = min(bm, tiling.tm), min(bn, tiling.tn)
                 row = {"site": label, "shape": [n, k, m], "chunks": [rb, cb],
+                       "dtype": str(dtype).split(".")[-1],
                        "w_transposed": transposed, "per_forward": count,
                        "tiling": {**tiling._asdict(),
                                   "blocks": tiling.tiles(n, m)
@@ -1079,16 +1159,15 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
                     args)
                 del args
                 nb, mb = n // rb, m // cb
-                nbytes = 2.0 * (n * k + k * m + n * m) + 4.0 * 6 * nb * mb
+                nbytes = eb * (n * k + k * m + n * m) + 4.0 * 6 * nb * mb
                 flops = 2.0 * n * k * m + 5.0 * n * m
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    nbytes, flops, BF16_FLOPS_PER_S)
+                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops,
+                                                            rate)
                 pm, pn = -(-n // bm), -(-m // bn)
-                mm_bytes = (2.0 * (n * k + k * m + n * m)
+                mm_bytes = (eb * (n * k + k * m + n * m)
                             + 4.0 * (pm * m + n * pn + pm * pn))
                 row["abft_matmul_bound_ms"], row["abft_matmul_bound_by"] = \
-                    bound_ms(mm_bytes, 2.0 * n * k * m + 4.0 * n * m,
-                             BF16_FLOPS_PER_S)
+                    bound_ms(mm_bytes, 2.0 * n * k * m + 4.0 * n * m, rate)
                 rows.append(row)
                 times = ("ms", "abft_matmul_ms", "library_ms", "plain_ms",
                          "abft_matmul_plain_ms")
@@ -1097,7 +1176,7 @@ def check_model_kernels(gen, report, key: str, sites, row_counts):
                 for key_ in times:
                     t[key_] += count * row[key_]
                 t["bytes"] += count * nbytes
-                t["flops"] += count * flops
+                t["flops"] += count * flops * BF16_FLOPS_PER_S / rate
                 log(f"  {what} chunks ({rb},{cb}) x{count}: tile "
                     f"{tiling.tm}x{tiling.tn}, {tiling.splits} splits, seg "
                     f"{tiling.seg}, partial tiles ({bm},{bn}) from the "
@@ -1139,6 +1218,13 @@ def check_musicgen_kernels(gen, report):
     """Phase 3e: the bf16 kernels at MusicGen-large's shapes."""
     return check_model_kernels(gen, report, "musicgen_kernels",
                                MUSICGEN_SITES, MUSICGEN_ROWS)
+
+
+def check_kimi_kernels(gen, report):
+    """Phase 3g: the kernels at Kimi-K2's plain-matmul sites (phase 15's
+    16 detect launches per forward), the fp32 router on the fp32 route."""
+    return check_model_kernels(gen, report, "kimi_kernels", KIMI_SITES,
+                               SERVE_ROWS)
 
 
 # --------------------------------------------------------------------------
@@ -1609,9 +1695,9 @@ def teacher_forced(params, cfg, fused, prompts, served):
             seq = torch.as_tensor(np.concatenate([np.asarray(p),
                                                   np.asarray(toks)]),
                                   device=DEVICE)[None]
-            ref, _, _ = M._forward(params, seq, ucfg)
+            ref, _, _, _ = M._forward(params, seq, ucfg)
             with core.plan_scope(fused, mode="detect_only"):
-                kern, _, _ = M._forward(params, seq, cfg)
+                kern, _, _, _ = M._forward(params, seq, cfg)
             plen = len(p)
             pos = torch.arange(plen - 1, seq.shape[1] - 1, device=DEVICE)
             ref_p = ref[0, pos]
@@ -2480,7 +2566,8 @@ def check_training_gemms(report) -> dict:
     (TRAIN_ROWS rows, the five distinct (K, M) of SERVE_SITES) in bf16 and
     f32 with the kernel pinned: O, dD and dW against autograd of
     matmul_raw; 3 abft_matmul launches per call (1 with protect_backward
-    off); clean reports; a registry burst in dW's and in dD's output,
+    off, 4 where a burst's ladder recomputes through the kernel); clean
+    reports; a registry burst in dW's and in dD's output,
     in fp32 detected, corrected with residual 0 and the gradients back
     within the clean tolerance plus the fix's rounding (in bf16 the
     verdicts are recorded: ROADMAP 3.5); and per shape the device ms of
@@ -2491,6 +2578,7 @@ def check_training_gemms(report) -> dict:
     from repro_torch.core import (DEFAULT_CONFIG, abft_matmul_vjp,
                                   plan_scope)
     from repro_torch.core import injection as inj
+    from repro_torch.core import types as T
     from repro_torch.core.protected import matmul_raw, pick_chunk
     from repro_torch.kernels import abft_matmul as AM
     from repro_torch.kernels import ops
@@ -2598,10 +2686,16 @@ def check_training_gemms(report) -> dict:
                                    scale[product],
                                    "gated": dtype == torch.float32,
                                    "within": ok}
-                if AM.LAUNCHES != 3 or other != (0, 0, 0):
+                # the ladder recomputes through the site's route, one
+                # launch more, where it fell back to a recompute or took a
+                # sub-fp32 scheme fix's elements from the route's product
+                recomputed = hit[1] == T.RECOMPUTE or (
+                    dtype != torch.float32
+                    and hit[1] in (T.COC, T.RC, T.CLC, T.FC))
+                if AM.LAUNCHES != 3 + recomputed or other != (0, 0, 0):
                     fail(f"abft_matmul_vjp {what}: burst in {product}: "
-                         f"launches {AM.LAUNCHES}, the other product's "
-                         f"verdict {other}")
+                         f"launches {AM.LAUNCHES}, verdict {hit}, the other "
+                         f"product's verdict {other}")
                 if dtype == torch.float32 and not (
                         hit[0] == 1 and hit[1] != 0 and hit[2] == 0 and ok):
                     fail(f"abft_matmul_vjp {what}: burst in {product} "
@@ -2893,7 +2987,8 @@ def run_training_phase(report) -> dict:
 
 def run_recurrent_serving(report, key: str, arch: str, layers: int,
                           n_sites: int, prefill_site: str, decode_site: str,
-                          table_scale: float = 1.0) -> dict:
+                          table_scale: float = 1.0,
+                          rounds: int = TIMED_ROUNDS) -> dict:
     """`arch` at full width and `layers` layers (0: its full depth) in bf16
     (random params drawn on the card from a seed; the embedding table
     times `table_scale`)
@@ -2915,7 +3010,7 @@ def run_recurrent_serving(report, key: str, arch: str, layers: int,
     `prefill_site`, and +1e4 at one repeat's `decode_site` on slot 3 in
     one mid-stream decode step (the corrective rerun must start from the
     step's input state: every later token equals the clean run's).
-    Written to report[key]."""
+    `rounds` rounds of the timed sessions. Written to report[key]."""
     import torch
     from repro_torch import configs, core
     from repro_torch._tree import tree_map
@@ -3055,7 +3150,7 @@ def run_recurrent_serving(report, key: str, arch: str, layers: int,
     # -- timings: two sessions in turns --------------------------------------
     sessions = {"unprotected": (ucfg, None), "kernels_on": (cfg, fused)}
     times = {k: {"decode_ms": [], "ttft_ms": []} for k in sessions}
-    for rnd in range(TIMED_ROUNDS):
+    for rnd in range(rounds):
         keys = list(sessions)
         for k in keys[rnd % 2:] + keys[:rnd % 2]:
             kcfg, kplan = sessions[k]
@@ -3223,17 +3318,748 @@ def run_rg_serving(report) -> dict:
 
 
 def run_musicgen_serving(report) -> dict:
-    """Phase 14: MusicGen-large at full width and depth, 337 sites per
-    forward (MUSICGEN_SITES), (S, 4) prompts and K-list tokens; the
-    prefill drill at one repeat's attention wk (the KV-cache write), the
-    decode drill at one repeat's FFN up."""
-    log("phase 14: MusicGen-large serving")
+    """Phase 14: MusicGen-large at full width and MUSICGEN_LAYERS layers,
+    7 sites a layer and the head per forward, (S, 4) prompts and K-list
+    tokens; the prefill drill at one repeat's attention wk (the KV-cache
+    write), the decode drill at one repeat's FFN up. Its sessions are
+    timed in LATE_TIMED_ROUNDS rounds."""
+    log(f"phase 14: MusicGen-large serving ({MUSICGEN_LAYERS} layers)")
     return run_recurrent_serving(
-        report, "musicgen_serving", MUSICGEN_ARCH, 0,
-        sum(site[-1] for site in MUSICGEN_SITES),
-        "stages/b0_attn_full/attn/wk", "stages/b1_ffn/ffn/up")
+        report, "musicgen_serving", MUSICGEN_ARCH, MUSICGEN_LAYERS,
+        7 * MUSICGEN_LAYERS + 1,
+        "stages/b0_attn_full/attn/wk", "stages/b1_ffn/ffn/up",
+        rounds=LATE_TIMED_ROUNDS)
 
 
+
+
+# --------------------------------------------------------------------------
+# phase 3f: the group-axis kernels at Kimi-K2's expert shapes (bf16)
+# --------------------------------------------------------------------------
+
+def time_events(fn, rounds: int = 3) -> float:
+    """Device milliseconds of one fn() between two CUDA events, median
+    over `rounds` after one warm-up: for calls too large to capture in a
+    graph (an fp32 copy of an expert stack)."""
+    import torch
+    fn()
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b))
+    return statistics.median(per)
+
+
+def within_bf16_ulp_noise(a, b, noise) -> bool:
+    """Every element of a within one bf16 ulp of b plus `noise`, the fp32
+    summation noise of its sum (elementwise): two roundings of fp32 sums
+    that differ by reassociation, where a sum that nearly cancels carries
+    more rounding than an ulp of its result."""
+    a32, b32 = a.float(), b.float()
+    return bool(((a32 - b32).abs() <= b32.abs() * 2.0 ** -7 + noise).all())
+
+
+def grouped_f32(d, w, absval: bool = False):
+    """The fp32 product of every group, (G, n, k) @ (G, k, m) (of |D| and
+    |W| with absval), a slab of groups at a time: no fp32 copy of the
+    whole stack."""
+    import torch
+    g, n, k = d.shape
+    m = w.shape[-1]
+    out = torch.empty((g, n, m), dtype=torch.float32, device=d.device)
+    per = max(1, (1 << 28) // (k * m))
+    for s0 in range(0, g, per):
+        a, b = d[s0:s0 + per].float(), w[s0:s0 + per].float()
+        if absval:
+            a, b = a.abs(), b.abs()
+        out[s0:s0 + per] = torch.bmm(a, b)
+    return out
+
+
+def check_moe_kernels(gen, report):
+    """Phase 3f: abft_matmul_detect and abft_matmul with a group axis, one
+    launch for all 384 experts, at Kimi-K2's expert shapes (gate/up 7168 x
+    2048, down 2048 x 7168) and the rows per expert a decode step and the
+    prefill buckets give (1, 2, 3), in bf16: flags equal to the plain
+    version's and clear on exact per-expert checksums; +1e4 at one element
+    of one expert flagging exactly that expert's chunk; O bitwise equal to
+    384 launches of the 2-D kernel and between the two grouped kernels,
+    within one bf16 ulp plus the fp32 summation noise (eps32 sqrt(K) sum
+    |d w| per element: near-cancelling sums of 7168 terms carry more
+    rounding than an ulp of their result) of the plain version.
+    Device ms of the one launch, of the 384 2-D launches, of torch.bmm and
+    the plain versions beside the bound (each launch reads the 11.3 GB
+    stack). Returns the two kernels' rows for their group-axis launches."""
+    import torch
+    from repro_torch import fp32_ieee
+    from repro_torch.core.plan import calibrate_tau_factor
+    from repro_torch.core.protected import pick_chunk
+    from repro_torch.core.thresholds import tau_scalar_coeffs
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import (abft_matmul_detect_ref,
+                                         abft_matmul_ref, chunk_sums_ref)
+    bf16, g = torch.bfloat16, MOE_EXPERTS
+    rows, err_det, err_mm = [], 0.0, 0.0
+    keys = ("ms", "singles_ms", "plain_ms", "library_ms", "mm_ms",
+            "mm_plain_ms", "bytes", "flops", "mm_bytes", "mm_flops")
+    tot = {n: dict.fromkeys(keys, 0.0) for n in MOE_TIMED_ROWS}
+    with torch.no_grad(), fp32_ieee():
+        for label, k, m, count in MOE_SHAPES:
+            # drawn a slab of experts at a time (an fp32 stack is 22.5 GB)
+            w = torch.empty((g, k, m), dtype=bf16, device="cuda")
+            for s0 in range(0, g, 32):
+                w[s0:s0 + 32] = (torch.randn((32, k, m), generator=gen,
+                                             device="cuda") * k ** -0.5)
+            for n in MOE_ROWS:
+                d = torch.randn((g, n, k), generator=gen,
+                                device="cuda").to(bf16)
+                rb, cb = pick_chunk(n, 1024), pick_chunk(m, 1024)
+                bm, bn = ops._tile(rb, 256), ops._tile(cb, 256)
+                tiling = AM.kernel_tiling(n, k, m, bf16, cb)
+                prod = grouped_f32(d, w)
+                c5, c6, c7, sq = chunk_sums_ref(prod, rb, cb)
+                absprod = grouped_f32(d, w, True)
+                absdot = chunk_sums_ref(absprod, rb, cb)[0]
+                # an element's fp32 summation noise, priced as the
+                # thresholds price it: eps32 sqrt(K) sum_i |d_i w_i|
+                noise_o = 2.0 ** -24 * k ** 0.5 * absprod
+                del absprod
+                cs = [c5, c6, c7, absdot]
+                ta, tb = tau_scalar_coeffs(k, bf16, calibrate_tau_factor(k))
+                before = (AM.GROUPED_DETECT_LAUNCHES, AM.GROUPED_LAUNCHES)
+                o, flag, score = AM.abft_matmul_detect(
+                    d, w, *cs, rb, cb, ta, tb)
+                o_mm, parts = AM.abft_matmul(d, w, bm, bn)
+                if (AM.GROUPED_DETECT_LAUNCHES - before[0],
+                        AM.GROUPED_LAUNCHES - before[1]) != (1, 1):
+                    fail("a group-axis call launched other than once")
+                singles = torch.stack([AM.abft_matmul_detect(
+                    d[i], w[i], *(c[i] for c in cs), rb, cb, ta, tb)[0]
+                    for i in range(g)])
+                o_r, flag_r, score_r = abft_matmul_detect_ref(
+                    d, w, *cs, rb, cb, ta, tb)
+                torch.cuda.synchronize()
+                what = f"{label} {g} x ({n}x{k})@({k}x{m})"
+                if not torch.equal(flag, flag_r) or int(flag.sum()):
+                    fail(f"abft_matmul_detect {what}: {int(flag.sum())}"
+                         f" flags, plain {int(flag_r.sum())}")
+                noise = 2.0 ** -24 * (k ** 0.5 + (rb * cb) ** 0.5) / ta
+                e_s = max_err(score, score_r)
+                if not torch.allclose(score, score_r, rtol=1e-3, atol=noise):
+                    fail(f"abft_matmul_detect {what}: clean scores "
+                         f"differ by {e_s:.3g} (limit {noise:.3g})")
+                if not torch.equal(o, singles):
+                    fail(f"{what}: the grouped launch's O differs from 384 "
+                         f"2-D launches' (max |diff| {max_err(o, singles):.3g})")
+                if not torch.equal(o, o_mm):
+                    fail(f"{what}: the two grouped kernels round O differently")
+                e_o = max_err(o, o_r)
+                if not within_bf16_ulp_noise(o, o_r, noise_o):
+                    fail(f"{what}: O beyond one bf16 ulp plus the fp32 "
+                         f"summation noise of the plain version (max |err| "
+                         f"{e_o:.3g})")
+                del o_r, singles
+                o_mr, parts_r = abft_matmul_ref(d, w, bm, bn)
+                e_p = 0.0
+                for a_, r_, nm in zip(parts[:3], parts_r[:3],
+                                      ("colsum", "rowsum", "sumsq")):
+                    if a_.shape != r_.shape or not torch.allclose(
+                            a_, r_, rtol=1e-5, atol=1e-3 * k ** 0.5):
+                        fail(f"abft_matmul {what} {nm}: max |err| "
+                             f"{max_err(a_, r_):.3g}")
+                    e_p = max(e_p, max_err(a_, r_))
+                if not within_bf16_ulp_noise(o_mm, o_mr, noise_o):
+                    fail(f"abft_matmul {what}: O beyond one bf16 ulp "
+                         "plus the summation noise")
+                err_mm = max(err_mm, e_p, max_err(o_mm, o_mr))
+                del o_mr, parts_r
+                # +1e4 at one element of one expert, in the checksums'
+                # prediction: that expert's chunk alone flags
+                hit, r, c = g // 2 + 1, n - 1, m - 5
+                p = prod[hit].clone()
+                p[r, c] += 1e4
+                bad = [x.clone() for x in cs]
+                for j, x in enumerate(chunk_sums_ref(p, rb, cb)[:3]):
+                    bad[j][hit] = x
+                _, flag_t, _ = AM.abft_matmul_detect(
+                    d, w, *bad, rb, cb, ta, tb)
+                want = torch.zeros_like(flag_t)
+                want[hit, r // rb, c // cb] = 1
+                if not torch.equal(flag_t, want):
+                    fail(f"{what}: +1e4 in expert {hit} flags "
+                         f"{torch.nonzero(flag_t).tolist()}")
+                err_det = max(err_det, e_s, e_o)
+                row = {"site": label, "groups": g, "shape": [n, k, m],
+                       "chunks": [rb, cb], "per_forward": count,
+                       "tiling": tiling._asdict(),
+                       "clean_score": float(score.max()),
+                       "max_abs_err": {"score": e_s, "partials": e_p}}
+                rows.append(row)
+                txt = (f"  {what} chunks ({rb},{cb}): tile {tiling.tm}x"
+                       f"{tiling.tn}, {tiling.splits} splits; flags clear, "
+                       f"+1e4 in expert {hit} flagged its chunk alone, O == "
+                       f"384 single launches")
+                if n not in MOE_TIMED_ROWS:
+                    log(txt)
+                    continue
+                ms = time_device(lambda *a: AM.abft_matmul_detect(
+                    *a, rb, cb, ta, tb), [(d, w, *cs)])
+                singles_ms = time_device(lambda dd, ww, *cc: [
+                    AM.abft_matmul_detect(dd[i], ww[i], *(x[i] for x in cc),
+                                          rb, cb, ta, tb) for i in range(g)],
+                    [(d, w, *cs)], rounds=3)
+                lib_ms = time_device(torch.bmm, [(d, w)])
+                mm_ms = time_device(lambda dd, ww: AM.abft_matmul(
+                    dd, ww, bm, bn), [(d, w)])
+                plain_ms = time_events(lambda: abft_matmul_detect_ref(
+                    d, w, *cs, rb, cb, ta, tb))
+                mm_plain = time_events(lambda: abft_matmul_ref(
+                    d, w, bm, bn))
+                nb, mb = n // rb, m // cb
+                nbytes = (2.0 * g * (n * k + k * m + n * m)
+                          + 4.0 * 6 * g * nb * mb)
+                flops = 2.0 * g * n * k * m + 5.0 * g * n * m
+                b, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+                pm, pn = -(-n // bm), -(-m // bn)
+                mm_bytes = (2.0 * g * (n * k + k * m + n * m)
+                            + 4.0 * g * (pm * m + n * pn + pm * pn))
+                mm_b, mm_by = bound_ms(mm_bytes, flops, BF16_FLOPS_PER_S)
+                row.update({"ms": ms, "singles_ms": singles_ms,
+                            "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": b, "bound_by": by,
+                            "abft_matmul_ms": mm_ms,
+                            "abft_matmul_plain_ms": mm_plain,
+                            "abft_matmul_bound_ms": mm_b})
+                log(f"{txt}; detect ms {ms:.4f}, 384 2-D launches "
+                    f"{singles_ms:.4f}, torch.bmm {lib_ms:.4f}, plain "
+                    f"{plain_ms:.4f}, bound {b:.4f} ({by}); abft_matmul"
+                    f" {mm_ms:.4f} plain {mm_plain:.4f} bound {mm_b:.4f}")
+                t = tot[n]
+                for key, v in (("ms", ms), ("singles_ms", singles_ms),
+                               ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                               ("mm_ms", mm_ms), ("mm_plain_ms", mm_plain),
+                               ("bytes", nbytes), ("flops", flops),
+                               ("mm_bytes", mm_bytes), ("mm_flops", flops)):
+                    t[key] += count * v
+                del d, prod, noise_o
+            del w
+    torch.cuda.empty_cache()
+    for n, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound_ms(t["bytes"], t["flops"],
+                                                BF16_FLOPS_PER_S)
+        t["mm_bound_ms"], t["mm_bound_by"] = bound_ms(
+            t["mm_bytes"], t["mm_flops"], BF16_FLOPS_PER_S)
+        log(f"  per moe block at {n} row(s) per expert (gate, up, down: 3 "
+            f"launches): detect ms {t['ms']:.4f}, as 1,152 2-D launches "
+            f"{t['singles_ms']:.4f}, torch.bmm {t['library_ms']:.4f}, plain "
+            f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} "
+            f"({t['bound_by']}, {t['bytes'] / 1e9:.2f} GB); abft_matmul"
+            f" {t['mm_ms']:.4f} plain {t['mm_plain_ms']:.4f} bound "
+            f"{t['mm_bound_ms']:.4f}")
+    report["moe_kernels"] = {"per_shape": rows,
+                             "per_block": {str(n): t for n, t in tot.items()}}
+    dec = tot[MOE_TIMED_ROWS[0]]
+    src = "src/repro_torch/kernels/csrc/abft_matmul.cu"
+    # times per moe block of a decode step (3 grouped launches, 1 row per
+    # expert)
+    detect = {"name": "abft_matmul_detect/grouped", "route": "cuda",
+              "source": src,
+              "replaces": "src/repro/kernels/abft_matmul.py:184",
+              "max_abs_err": err_det, "ms": dec["ms"],
+              "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+              "bound_by": dec["bound_by"], "library_ms": dec["library_ms"]}
+    mm = {"name": "abft_matmul/grouped", "route": "cuda", "source": src,
+          "replaces": "src/repro/kernels/abft_matmul.py:78",
+          "max_abs_err": err_mm, "ms": dec["mm_ms"],
+          "plain_ms": dec["mm_plain_ms"], "bound_ms": dec["mm_bound_ms"],
+          "bound_by": dec["mm_bound_by"], "library_ms": dec["library_ms"]}
+    return detect, mm
+
+
+# --------------------------------------------------------------------------
+# phase 15: Kimi-K2 at full width (2 of 61 layers)
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def record_routing(log_):
+    """Append (top_e (T, k), kept (T, k)) of every moe dispatch made in the
+    scope to log_: each token's experts and which of its assignments kept
+    a capacity slot."""
+    import torch
+    from repro_torch.layers import moe
+    dispatch = moe.dispatch
+
+    def recording(top_e, e, cap):
+        out = dispatch(top_e, e, cap)
+        order, _, valid, _ = out
+        kept = torch.empty_like(valid)
+        kept[order] = valid
+        log_.append((top_e.clone(), kept.reshape(top_e.shape)))
+        return out
+
+    moe.dispatch = recording
+    try:
+        yield log_
+    finally:
+        moe.dispatch = dispatch
+
+
+def forced_session(params, cfg, plan, prompts, forced, correction="auto"):
+    """A ProtectedSession over `prompts` (32 new tokens each) that feeds
+    back `forced[i]`, request i's tokens of another run, instead of its
+    own argmax: the teacher-forced replay with that run's batch
+    composition (the same slots, buckets and admission steps). Returns the
+    session after its run: `rows[(i, j)]`, the fp32 logits row that gave
+    request i's token j, and `forward_of[(i, j)]`, the index of that
+    forward among the session's."""
+    import torch
+    from repro_torch.serving import ProtectedSession
+
+    class Forced(ProtectedSession):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.rows, self.forward_of, self.forwards = {}, {}, 0
+            self._seen = []
+            for attr in ("_decode_pm", "_prefill_pm"):
+                setattr(self, attr, self._recording(getattr(self, attr)))
+
+        def _recording(self, pm):
+            def call(*a, **kw):
+                out = pm(*a, **kw)
+                self._seen.append(out[0][0])
+                return out
+            return call
+
+        def _apply_prefill_outputs(self, nxt, s, slot, req):
+            li = self._seen.pop()
+            self.rows[(req.id, 0)] = li[0, 0].float()
+            self.forward_of[(req.id, 0)] = self.forwards
+            self.forwards += 1
+            nxt = nxt.copy()
+            nxt[0, 0] = forced[req.id][0]
+            return super()._apply_prefill_outputs(nxt, s, slot, req)
+
+        def _host_decode(self, out):
+            nxt, hit = super()._host_decode(out)
+            logits = self._seen.pop()
+            for slot, req in self.scheduler.active.items():
+                j = len(self.stats.record(req.id).tokens)
+                self.rows[(req.id, j)] = logits[slot, 0].float()
+                self.forward_of[(req.id, j)] = self.forwards
+                nxt[slot, 0] = forced[req.id][j]
+            self.forwards += 1
+            return nxt, hit
+
+    sess = Forced(params, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+                  correction=correction, device=DEVICE)
+    for p in prompts:
+        sess.submit(p, max_new_tokens=GEN)
+    with torch.no_grad():
+        sess.run()
+    return sess
+
+
+def run_moe_serving(report) -> dict:
+    """Phase 15: Kimi-K2 at full width and 2 of 61 layers in bf16 (random
+    params drawn on the card from a seed), served as phase 6 serves
+    SmolLM-360M (8 slots, deferred, the plain-matmul sites on the detect
+    kernel, the grouped expert GEMMs on their plain route as
+    force_fused_matmul leaves them, 16 requests of 16-128 tokens, 32 new
+    tokens each). Checks: every request finishes by length, zero flags,
+    no echo, 16 detect launches and 1 host read per deferred forward;
+    per_layer serves the first 8 requests' 8 tokens alike with 16
+    abft_matmul launches and 19 host reads per forward (16 sites and 3
+    grouped ones); teacher-forced with the session's batch composition
+    (forced_session): the routed expert sets of the two routes compared
+    row by row; over the forwards where they agree, every served token's
+    unprotected logit within twice the two routes' largest logit gap
+    there plus DELTA of the unprotected top (the margins in forwards with
+    a differing set reported apart). Timing:
+    the unprotected and the protected session in turns over the first 8
+    requests (one wave of the slots), a profile of one
+    decode step of each, the device ms of the per-call expert re-encode.
+    Drills: +1e3 in every prefill at the repeat's attention wk, +1e4 at
+    one fp32 router logit of slot 3 in one decode step (the corrected
+    routing is the clean run's, a second slot hit only where the faulted
+    routing displaced its assignment) and +1e4 at the shared expert's down
+    on slot 3 in one decode step, every token equal to the clean run's.
+    Then one prefill with the grouped entries pinned to the group-axis
+    kernels in each mode: flags clear, 3 grouped launches per forward."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, core, fp32_ieee
+    from repro_torch.core import protected as P
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import ProtectedSession
+
+    log(f"phase 15: Kimi-K2 serving ({MOE_LAYERS} of 61 layers)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(MOE_ARCH).replace(num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = core.build_plan(params, cfg, batch=SLOTS, seq=MAX_LEN,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    plan.validate(params)
+    fused = core.force_fused_matmul(plan)
+    kinds = [e.op.kind for e in fused.entries.values()]
+    grouped = [n for n, e in fused.entries.items()
+               if e.op.kind == "grouped_matmul"]
+    if (kinds.count("matmul"), len(grouped)) != (MOE_MATMUL_SITES,
+                                                 MOE_GROUPED_SITES):
+        fail(f"the plan has {kinds.count('matmul')} matmul and "
+             f"{len(grouped)} grouped entries")
+    if any(fused[n].wck is not None or fused[n].cfg.use_fused_kernel
+           for n in grouped):
+        fail("a stage's grouped entry carries checksums or a pinned kernel")
+    log(f"  {cfg.name}: {cfg.num_layers} layers, {M.count_params(cfg) / 1e9:.3f}"
+        f" G params bf16, {MOE_MATMUL_SITES} matmul + {MOE_GROUPED_SITES} "
+        f"grouped sites per forward; init {init_s:.1f} s, build_plan "
+        f"{plan_s:.1f} s")
+    res = {"init_s": init_s, "build_plan_s": plan_s}
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+    moe_w = params["stages"]["b1_moe"]["moe"]
+
+    # -- the main path: deferred, kernels pinned -----------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    AM.GROUPED_LAUNCHES = AM.GROUPED_DETECT_LAUNCHES = 0
+    sess, rids, rep, steps = serve(params, cfg, fused, prompts, GEN)
+    c = rep["counters"]
+    forwards = c["prefills"] + c["decode_steps"]
+    launches = {"abft_matmul_detect": AM.DETECT_LAUNCHES,
+                "abft_matmul": AM.LAUNCHES,
+                "abft_matmul_detect/grouped": AM.GROUPED_DETECT_LAUNCHES,
+                "abft_matmul/grouped": AM.GROUPED_LAUNCHES}
+    reads = workflow.HOST_READS
+    tokens = {r: sess.tokens_for(r) for r in rids}
+    distinct = [len(set(t)) for t in tokens.values()]
+    echoes = [r for r, p in zip(rids, prompts)
+              if all(x == int(p[-1]) for x in tokens[r])]
+    reasons = [r["finish_reason"] for r in rep["requests"]]
+    log(f"  deferred: {rep['completed']} requests, {c['prefills']} prefills "
+        f"+ {c['decode_steps']} decode steps, launches {launches}, host reads "
+        f"{reads}, faults {c['faults_detected']}; distinct tokens per "
+        f"request {distinct}, echoes {len(echoes)}")
+    if reasons != ["length"] * N_REQ or rep["completed"] != N_REQ:
+        fail(f"requests finished with {reasons}")
+    if c["faults_detected"] or c["dropped"] or c["faults_unattributed"]:
+        fail(f"clean serving counted {c}")
+    if echoes:
+        fail(f"requests {echoes} echo their prompt's last token")
+    if launches != {"abft_matmul_detect": MOE_MATMUL_SITES * forwards,
+                    "abft_matmul": 0, "abft_matmul_detect/grouped": 0,
+                    "abft_matmul/grouped": 0} or reads != forwards:
+        fail(f"{forwards} clean forwards launched {launches} with {reads} "
+             f"host reads")
+    res["deferred"] = {"counters": c, "launches": launches,
+                       "host_reads": reads, "forwards": forwards,
+                       "distinct_tokens": distinct}
+
+    # -- per_layer serves the same tokens ------------------------------------
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    s_pl, r_pl, rep_pl, _ = serve(params, cfg, fused, prompts[:8], 8,
+                                  correction="per_layer")
+    f_pl = rep_pl["counters"]["prefills"] + rep_pl["counters"]["decode_steps"]
+    got = [s_pl.tokens_for(r) for r in r_pl]
+    want = [tokens[r][:8] for r in rids[:8]]
+    per_fwd = workflow.HOST_READS / f_pl
+    log(f"  per_layer, first 8 requests x 8 tokens: {workflow.HOST_READS} "
+        f"host reads over {f_pl} forwards ({per_fwd:g} each: "
+        f"{MOE_MATMUL_SITES} matmul sites + {MOE_GROUPED_SITES} grouped), "
+        f"abft_matmul launches {AM.LAUNCHES}; tokens == deferred: "
+        f"{got == want}")
+    if got != want:
+        fail(f"per_layer tokens {got} differ from deferred's {want}")
+    if (workflow.HOST_READS != (MOE_MATMUL_SITES + MOE_GROUPED_SITES) * f_pl
+            or AM.LAUNCHES != MOE_MATMUL_SITES * f_pl):
+        fail(f"per_layer: {workflow.HOST_READS} reads, {AM.LAUNCHES} "
+             "launches")
+    res["per_layer"] = {"host_reads": workflow.HOST_READS, "forwards": f_pl,
+                        "launches": AM.LAUNCHES}
+
+    # -- teacher-forced with the session's batch composition -----------------
+    # MoE couples a batch's rows through expert capacity, so the reference
+    # is not an unbatched forward: the unprotected model replays the
+    # served tokens in the same slots, buckets and admission steps, and so
+    # does the protected one (its rows are the served run's, bitwise); the
+    # routes' largest logit gap at the same inputs is the noise floor
+    ucfg = cfg.replace(abft=False)
+    forced = [tokens[r] for r in rids]
+    runs, routes = {}, {}
+    for name, (kcfg, kplan) in (("unprotected", (ucfg, None)),
+                                ("protected", (cfg, fused))):
+        routes[name] = []
+        with record_routing(routes[name]):
+            runs[name] = forced_session(params, kcfg, kplan, prompts, forced)
+        if runs[name].stats.counters["faults_detected"]:
+            fail(f"teacher-forced {name} run flagged")
+    ref_rows, kern_rows = runs["unprotected"].rows, runs["protected"].rows
+    if set(ref_rows) != set(kern_rows) or len(ref_rows) != N_REQ * GEN:
+        fail(f"teacher-forced runs recorded {len(ref_rows)} / "
+             f"{len(kern_rows)} rows")
+    ru, rp = routes["unprotected"], routes["protected"]
+    if not len(ru) == len(rp) == runs["unprotected"].forwards:
+        fail(f"the replays routed {len(ru)} and {len(rp)} of "
+             f"{runs['unprotected'].forwards} forwards")
+    flips, rows_routed = {}, 0
+    for f, ((eu, _), (ep, _)) in enumerate(zip(ru, rp)):
+        rows_routed += eu.shape[0]
+        nflip = int((torch.sort(eu, dim=1).values
+                     != torch.sort(ep, dim=1).values).any(dim=1).sum())
+        if nflip:
+            flips[f] = nflip
+    # a forward whose two routes picked different experts for a row did not
+    # compute its rows on the same inputs (capacity couples them): the gap,
+    # the routes' noise floor, is taken over the other forwards alone, and
+    # the gate holds their tokens; a flip forward's margins stand apart
+    forward_of = runs["unprotected"].forward_of
+    gap, gap_at, worst, off = 0.0, None, 0.0, 0
+    flip_margins = {}
+    for key, ref in ref_rows.items():
+        kern = kern_rows[key]
+        tok = forced[key[0]][key[1]]
+        off += int(int(torch.argmax(kern)) != tok)
+        margin = float(ref.max() - ref[tok])
+        f = forward_of[key]
+        if f in flips:
+            flip_margins[f] = max(flip_margins.get(f, 0.0), margin)
+            continue
+        e = max_err(kern, ref)
+        if e > gap:
+            gap, gap_at = e, {"request": key[0], "token": key[1],
+                              "forward": f}
+        worst = max(worst, margin)
+    if off:
+        fail(f"the protected replay's argmax left the served tokens at {off} "
+             f"of {len(kern_rows)} positions")
+    log(f"  teacher-forced with the session's batch composition: top-8 "
+        f"expert sets differ between the routes in {sum(flips.values())} of "
+        f"{rows_routed} routed rows, in {len(flips)} of {len(ru)} forwards "
+        f"{sorted(flips)}; over the other forwards the two routes differ by "
+        f"up to {gap:.4g} in a logit (at {gap_at}) and served tokens lie at "
+        f"most {worst:.4g} below the unprotected top logit (limit 2 x gap + "
+        f"{DELTA} = {2 * gap + DELTA:.4g}); the largest margin in each flip "
+        f"forward, apart: {flip_margins}")
+    if not worst <= 2 * gap + DELTA:
+        fail(f"a served token's unprotected logit is {worst:.4g} below the "
+             f"top, beyond twice the routes' gap {gap:.4g} plus {DELTA}")
+    res["teacher_forced"] = {"max_logit_gap": gap, "max_gap_at": gap_at,
+                             "max_margin": worst,
+                             "routed_rows": rows_routed,
+                             "forwards": len(ru),
+                             "flipped_rows": sum(flips.values()),
+                             "flips_per_forward": flips,
+                             "flip_forward_margins": flip_margins}
+    del runs, ref_rows, kern_rows, routes, ru, rp
+
+    # -- timings: two sessions in turns --------------------------------------
+    # over one wave of the 8 slots (the first 8 requests, 32 tokens each),
+    # half the main run's decode steps, in LATE_TIMED_ROUNDS rounds
+    sessions = {"unprotected": (ucfg, None), "kernels_on": (cfg, fused)}
+    times = {k: {"decode_ms": [], "ttft_ms": []} for k in sessions}
+    for rnd in range(LATE_TIMED_ROUNDS):
+        keys = list(sessions)
+        for k in keys[rnd % 2:] + keys[:rnd % 2]:
+            kcfg, kplan = sessions[k]
+            _, _, rp_, st = serve(params, kcfg, kplan, prompts[:SLOTS], GEN)
+            times[k]["decode_ms"].append(statistics.median(st["ms"]))
+            times[k]["ttft_ms"].append(rp_["ttft_p50_s"] * 1e3)
+    for k, v in times.items():
+        log(f"  {k}: median decode step ms {v['decode_ms']}, TTFT p50 ms "
+            f"{v['ttft_ms']}")
+    med = {k: {m: statistics.median(v[m]) for m in v} for k, v in times.items()}
+    over = {m: med["kernels_on"][m] / med["unprotected"][m] - 1
+            for m in med["kernels_on"]}
+    log(f"  error-free overhead: decode step {over['decode_ms'] * 100:.1f}%, "
+        f"TTFT p50 {over['ttft_ms'] * 100:.1f}%")
+    res["times"], res["overhead"] = times, over
+
+    # -- what a stage's expert stack costs per call --------------------------
+    with torch.no_grad(), fp32_ieee():
+        enc = {n: time_events(lambda n=n: P.grouped_weight_checksums(
+            moe_w[n][0], cfg.abft_col_chunk)) for n in ("gate", "up", "down")}
+    log(f"  per-call expert re-encode of the stage's 4-D stacks (device ms "
+        f"per call, each reads {moe_w['gate'][0].numel() * 2 / 1e9:.2f} GB): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in enc.items())
+        + f"; {sum(enc.values()):.3f} per forward")
+    res["reencode_ms"] = enc
+
+    # -- profile of one decode step of each ----------------------------------
+    res["profile"] = {}
+    for k, (kcfg, kplan) in sessions.items():
+        ps = ProtectedSession(params, kcfg, kplan, slots=SLOTS,
+                              max_len=MAX_LEN, device=DEVICE)
+        for p in prompts[:SLOTS]:
+            ps.submit(p, max_new_tokens=GEN)
+        ps.step()                     # admits all 8, one decode step
+        prof = profile_forward(ps.step)
+        res["profile"][k] = prof
+        log(f"  profile, one decode step {k}: wall {prof['wall_ms']:.3f} ms, "
+            f"device busy {prof['device_ms']:.3f} ms ({prof['kernels']} "
+            f"kernels), idle share {prof['idle_share']:.3f}; top: " + ", ".join(
+                f"{t['name'][:40]} {t['ms']:.3f}" for t in prof["top"][:6]))
+        del ps
+
+    # -- drills ----------------------------------------------------------------
+    drill_prompts = prompts[:SLOTS]
+    clean_routes = []
+    with record_routing(clean_routes):
+        s_c, r_c, _, _ = serve(params, cfg, fused, drill_prompts, 8)
+    clean = [s_c.tokens_for(r) for r in r_c]
+    if clean != [tokens[r][:8] for r in rids[:SLOTS]]:
+        fail("the clean drill run's tokens differ from the main run's")
+    target, step_hit = 3, 3
+
+    def by_slot_of(rp_, ids):
+        recs = {r["id"]: r for r in rp_["requests"]}
+        return {recs[r]["slot"]: recs[r] for r in ids}
+
+    calls = [0]
+
+    def prefill_hook(o):
+        if o.shape[0] == 1 and o.shape[1] > 1:
+            o = o.clone()
+            o[0, 5, 17 % o.shape[-1]] += 1e3
+        return o
+
+    site = "stages/b0_attn_full/attn/wk"
+    s_p, r_p, rep_p, _ = serve(params, cfg, fused, drill_prompts, 8,
+                               hook=(site, prefill_hook))
+    recs = {r["id"]: r for r in rep_p["requests"]}
+    cp_ = rep_p["counters"]
+    same = [s_p.tokens_for(r) for r in r_p] == clean
+    ok = (all(recs[r]["prefill_detected"] == 1
+              and recs[r]["faults_detected"] == 1
+              and recs[r]["corrections_applied"] == 1
+              and recs[r]["residuals"] == 0 for r in r_p)
+          and cp_["residual_steps"] == 0 and cp_["faults_unattributed"] == 0)
+    log(f"  prefill fault at {site}: prefill_detected "
+        f"{[recs[r]['prefill_detected'] for r in r_p]}, corrected "
+        f"{cp_['faults_corrected']}/{cp_['faults_detected']}; tokens == "
+        f"clean: {same}")
+    if not (ok and same):
+        fail(f"{site} drill: {recs} counters {cp_} tokens equal {same}")
+    res["drills"] = {"prefill": {"site": site, "counters": cp_}}
+
+    def decode_hook(o):
+        # a decode step's (8, M) rows; step s's detect pass is call s, its
+        # corrective rerun call s + 1 (no earlier step reruns)
+        if o.dim() == 2 and o.shape[0] == SLOTS:
+            calls[0] += 1
+            if calls[0] - 1 in (step_hit, step_hit + 1):
+                o = o.clone()
+                o[target, 7] += 1e4
+        return o
+
+    dec = lambda rs: [x for x in rs if x[0].shape[0] == SLOTS]
+    for site in ("stages/b1_moe/moe/router", "stages/b1_moe/moe/shared/down"):
+        calls[0] = 0
+        drill_routes = []
+        with record_routing(drill_routes):
+            s_o, r_o, rep_o, st_o = serve(params, cfg, fused, drill_prompts,
+                                          8, hook=(site, decode_hook))
+        by_slot, co = by_slot_of(rep_o, r_o), rep_o["counters"]
+        hit_steps = [i for i, h in enumerate(st_o["hits"]) if any(h)]
+        hit_slots = sorted({i for h in st_o["hits"] for i, x in enumerate(h)
+                            if x})
+        same = [s_o.tokens_for(r) for r in r_o] == clean
+        cd, dd = dec(clean_routes), dec(drill_routes)
+        if len(dd) != len(cd) + 1:
+            fail(f"{site} drill: {len(dd)} decode routings, clean {len(cd)}")
+        faulted, rerun = dd[step_hit], dd[step_hit + 1]
+        kept_sets = lambda r: [set(e[k_].tolist()) for e, k_ in zip(*r)]
+        clean_sets, faulted_sets = kept_sets(cd[step_hit]), kept_sets(faulted)
+        displaced = sorted(i for i in range(SLOTS) if i != target
+                           and faulted_sets[i] != clean_sets[i])
+        rerun_clean = (torch.equal(rerun[0], cd[step_hit][0])
+                       and torch.equal(rerun[1], cd[step_hit][1]))
+        later_clean = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                          for a, b in zip(dd[step_hit + 2:],
+                                          cd[step_hit + 1:]))
+        allowed = sorted({target, *displaced})
+        ok = (co["faults_detected"] == 1 and co["faults_corrected"] == 1
+              and by_slot[target]["faults_detected"] == 1
+              and by_slot[target]["corrections_applied"] == 1
+              and by_slot[target]["residuals"] == 0
+              and co["residual_steps"] == 0 and co["faults_unattributed"] == 0
+              and hit_steps == [step_hit] and target in hit_slots
+              and set(hit_slots) <= set(allowed)
+              and rerun_clean and later_clean)
+        log(f"  decode fault at {site}, slot {target}, decode step "
+            f"{step_hit}: {co['faults_detected']} detected / "
+            f"{co['faults_corrected']} corrected, localizer hit steps "
+            f"{hit_steps} slots {hit_slots}; the faulted pass kept slot "
+            f"{target}'s experts {sorted(faulted_sets[target])} (clean "
+            f"{sorted(clean_sets[target])}), displacing slots {displaced}; "
+            f"the corrected rerun routed as the clean run: {rerun_clean}, "
+            f"later steps too: {later_clean}; every later token == clean: "
+            f"{same}")
+        if not (ok and same):
+            fail(f"{site} drill: {by_slot} counters {co} hits {hit_steps} "
+                 f"{hit_slots} displaced {displaced} tokens equal {same}")
+        res["drills"][site.split("/", 2)[2]] = {
+            "counters": co, "hit_slots": hit_slots, "displaced": displaced}
+
+    # -- the grouped entries pinned to the group-axis kernels -----------------
+    pinned = core.ProtectionPlan(
+        entries={n: dataclasses.replace(e, cfg=e.cfg.replace(
+            use_fused_kernel=True)) if e.op.kind == "grouped_matmul" else e
+            for n, e in fused.entries.items()}, meta=dict(fused.meta))
+    toks = torch.as_tensor(np.asarray(prompts[0]), device=DEVICE)[None]
+    out = {}
+    with torch.no_grad():
+        for name, pl in (("plain", fused), ("pinned", pinned)):
+            pm = core.ProtectedModel(M.prefill_apply(cfg, MAX_LEN), pl)
+            for mode in ("deferred", "per_layer"):
+                AM.LAUNCHES = AM.DETECT_LAUNCHES = 0
+                AM.GROUPED_LAUNCHES = AM.GROUPED_DETECT_LAUNCHES = 0
+                (lt, _), rp_ = pm(params, toks, correction=mode)
+                v = core.as_fault_report(rp_)
+                out[(name, mode)] = (lt, int(v.detected), (
+                    AM.DETECT_LAUNCHES, AM.LAUNCHES,
+                    AM.GROUPED_DETECT_LAUNCHES, AM.GROUPED_LAUNCHES))
+    want = {"deferred": (MOE_MATMUL_SITES, 0, MOE_GROUPED_SITES, 0),
+            "per_layer": (0, MOE_MATMUL_SITES, 0, MOE_GROUPED_SITES)}
+    pin_gap = max(max_err(out[("pinned", m)][0], out[("plain", m)][0])
+                  for m in want)
+    log(f"  prefill of {toks.shape[1]} tokens with the grouped entries pinned "
+        f"to the group-axis kernels: launches (detect, abft_matmul, grouped "
+        f"detect, grouped) deferred {out[('pinned', 'deferred')][2]}, "
+        f"per_layer {out[('pinned', 'per_layer')][2]}; flags "
+        f"{[out[k][1] for k in out]}; logits within {pin_gap:.4g} of the "
+        f"plain grouped route's; per_layer == deferred: "
+        f"{torch.equal(out[('pinned', 'deferred')][0], out[('pinned', 'per_layer')][0])}")
+    if (any(out[k][1] for k in out)
+            or any(out[("pinned", m)][2] != want[m] for m in want)
+            or not torch.equal(out[("pinned", "deferred")][0],
+                               out[("pinned", "per_layer")][0])):
+        fail(f"pinned grouped forwards: {[(k, out[k][1:]) for k in out]}")
+    res["pinned_grouped"] = {
+        "launches": {m: out[("pinned", m)][2] for m in want},
+        "logit_gap_to_plain": pin_gap,
+        "grouped_detect_launches": out[("pinned", "deferred")][2][2],
+        "grouped_launches": out[("pinned", "per_layer")][2][3]}
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  peak device memory {res['peak_memory_gib']:.2f} GiB")
+    if res["peak_memory_gib"] > 70:
+        fail(f"peak device memory {res['peak_memory_gib']:.2f} GiB")
+    report["moe_serving"] = res
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -3476,12 +4302,17 @@ def main(argv=None) -> int:
     timed("3d", check_rg_kernels, gen, report)
     log("phase 3e: the kernels at MusicGen-large's shapes")
     timed("3e", check_musicgen_kernels, gen, report)
+    log("phase 3f: the group-axis kernels at Kimi-K2's expert shapes")
+    kernels += timed("3f", check_moe_kernels, gen, report)
+    log("phase 3g: the kernels at Kimi-K2's plain-matmul sites")
+    timed("3g", check_kimi_kernels, gen, report)
 
     log("phase 4: the slice")
     res, slice_ctx = timed("4-5b", run_slice, report)
-    for k in kernels[:2]:
-        k["launches"] = res["per_layer"]["launches"][k["name"]]
-        k["launches_from"] = "phase 4: one clean per_layer forward"
+    rows = {k["name"]: k for k in kernels}
+    for name in ("checksum_reduce", "abft_matmul"):
+        rows[name]["launches"] = res["per_layer"]["launches"][name]
+        rows[name]["launches_from"] = "phase 4: one clean per_layer forward"
 
     campaign = {}
     try:
@@ -3494,11 +4325,14 @@ def main(argv=None) -> int:
     # the detect kernel's count is the deferred main path's; the serving
     # abft_matmul row's is the per_layer path's (0 launches when deferred
     # and clean)
-    kernels[2]["launches"] = serving["deferred"]["launches"][
+    rows["abft_matmul_detect"]["launches"] = serving["deferred"]["launches"][
         "abft_matmul_detect"]
-    kernels[2]["launches_from"] = "phase 6: the deferred session's forwards"
-    kernels[3]["launches"] = serving["per_layer"]["launches"]
-    kernels[3]["launches_from"] = "phase 6: the per_layer session's forwards"
+    rows["abft_matmul_detect"]["launches_from"] = (
+        "phase 6: the deferred session's forwards")
+    rows["abft_matmul/serving_bf16"]["launches"] = \
+        serving["per_layer"]["launches"]
+    rows["abft_matmul/serving_bf16"]["launches_from"] = (
+        "phase 6: the per_layer session's forwards")
     timed("9", run_calibrated_plan, report, slice_ctx)
     del slice_ctx
     timed("10", run_driver_phase, report, serve_ctx)
@@ -3507,6 +4341,18 @@ def main(argv=None) -> int:
     timed("12", run_mamba_serving, report)
     timed("13", run_rg_serving, report)
     timed("14", run_musicgen_serving, report)
+    moe = timed("15", run_moe_serving, report)
+    # the group-axis kernels' counts are the forwards with the grouped
+    # entries pinned to them (force_fused_matmul leaves them on their plain
+    # route, as the JAX package's does)
+    rows["abft_matmul_detect/grouped"]["launches"] = \
+        moe["pinned_grouped"]["grouped_detect_launches"]
+    rows["abft_matmul_detect/grouped"]["launches_from"] = (
+        "phase 15: a deferred prefill with the grouped entries pinned")
+    rows["abft_matmul/grouped"]["launches"] = \
+        moe["pinned_grouped"]["grouped_launches"]
+    rows["abft_matmul/grouped"]["launches_from"] = (
+        "phase 15: a per_layer prefill with the grouped entries pinned")
     report["kernels"] = kernels
     report["seconds"] = time.perf_counter() - t_start
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"

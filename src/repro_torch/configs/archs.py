@@ -1,9 +1,9 @@
 """The 10 architectures of the JAX package (twin of repro.configs.archs)
 plus reduced smoke variants; see also the per-arch modules
 (repro_torch/configs/<id>.py), which re-export these. The port runs
-every block family but moe (attention, dense FFN, Mamba-2 ssm, RG-LRU
-rec) and multi-codebook I/O; moe blocks raise in the model (ROADMAP item
-1.7)."""
+every block family (attention, dense FFN, moe, Mamba-2 ssm, RG-LRU rec)
+and multi-codebook I/O; it trains none with moe blocks yet (ROADMAP item
+1.12)."""
 from __future__ import annotations
 
 from .base import ModelConfig

@@ -2,7 +2,7 @@
 and matmul, the offline-compiled ProtectionPlan API with its measured
 roofline cost model and kernel profiles, the fault-model registry and the
 at-rest weight repair (twin of repro.core: the CNN and transformer
-slices)."""
+slices, the grouped MoE GEMM included)."""
 from . import checksums, cost_model, injection, plan, policy, protected
 from . import schemes
 from . import thresholds, types, weight_repair, workflow
@@ -17,7 +17,8 @@ from .plan import (W_VIEWS, OpSite, OpSpec, PlanEntry, PlanStaleError,
                    apply_w_view, apply_w_view_inv, build_plan,
                    calibrate_tau_factor,
                    conv_entry, correct_op, current_path, entry_overrides,
-                   force_fused_matmul, matmul_entry, path_scope, plan_scope,
+                   force_fused_matmul, grouped_matmul_entry, matmul_entry,
+                   path_scope, plan_scope,
                    protect_op, protect_site, protection_spec, resolve_entry,
                    stacked_weight_checksums_matmul,
                    stacked_weight_locators_matmul, weight_leaf)
@@ -26,7 +27,8 @@ from .policy import (CostModel, KernelProfile, OpShape, calibrate,
                      profile_matmul_kernel)
 from .protected import (WeightChecksums, abft_matmul_vjp, pick_chunk,
                         protect_matmul_output, protected_conv,
-                        protected_matmul, weight_checksums_matmul)
+                        protected_grouped_matmul, protected_matmul,
+                        weight_checksums_matmul)
 from .types import (CHECKSUM_REFRESH, CLC, COC, DEFAULT_CONFIG, FC, NONE, RC,
                     RECOMPUTE, SCHEME_NAMES, W_REPAIR, DetectEvidence,
                     FaultReport, ModelReport, ProtectConfig, as_fault_report,
@@ -45,14 +47,15 @@ __all__ = [
     "apply_w_view", "apply_w_view_inv", "build_plan",
     "calibrate_tau_factor", "conv_entry",
     "correct_op", "current_path", "entry_overrides", "force_fused_matmul",
-    "matmul_entry", "path_scope", "plan_scope", "protect_op", "protect_site",
+    "grouped_matmul_entry", "matmul_entry", "path_scope", "plan_scope", "protect_op", "protect_site",
     "protection_spec", "resolve_entry", "stacked_weight_checksums_matmul",
     "stacked_weight_locators_matmul", "weight_leaf",
     "CostModel", "KernelProfile", "OpShape", "calibrate", "decide_rc_clc",
     "profile_conv_detect_kernel", "profile_matmul_kernel",
     "WeightChecksums", "abft_matmul_vjp", "pick_chunk",
     "protect_matmul_output",
-    "protected_conv", "protected_matmul", "weight_checksums_matmul",
+    "protected_conv", "protected_grouped_matmul", "protected_matmul",
+    "weight_checksums_matmul",
     "CHECKSUM_REFRESH", "CLC", "COC", "DEFAULT_CONFIG", "FC", "NONE", "RC",
     "RECOMPUTE", "SCHEME_NAMES", "W_REPAIR", "DetectEvidence", "FaultReport",
     "ModelReport", "ProtectConfig", "as_fault_report", "clean_report",

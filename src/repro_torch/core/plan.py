@@ -11,7 +11,11 @@ A plan maps param-tree paths to `PlanEntry`s: the op geometry (`OpSpec`),
 the SS4.3 policy decision (a `ProtectConfig`) and the precomputed weight
 checksums. Transformer stage entries are stacked: their weights and
 checksums keep the leading repeats axis, and the forward swaps in each
-repeat's slice (`entry_overrides`). The file format is the JAX package's
+repeat's slice (`entry_overrides`). Grouped entries (a MoE block's
+experts) carry per-expert checksums and locators for an (E, K, M) stack;
+a stage-stacked (reps, E, K, M) leaf is fingerprinted only, and every
+call encodes its experts from the weight, as in the JAX package. The
+file format is the JAX package's
 `repro.plan/v1`, so a plan saved by either package loads in the other;
 locator sums stay host numpy float64.
 """
@@ -33,9 +37,11 @@ from . import checksums as C
 from .cost_model import cost_model_doc
 from .policy import (CostModel, OpShape, decide_rc_clc,
                      profile_conv_detect_kernel, profile_matmul_kernel)
-from .protected import (WeightChecksums, matmul_raw, pick_chunk,
+from .protected import (ENCODE_SLAB, WeightChecksums, _site_product,
+                        grouped_weight_checksums, pick_chunk,
                         protect_matmul_output, protected_conv,
-                        protected_matmul, weight_checksums_matmul)
+                        protected_grouped_matmul, protected_matmul,
+                        weight_checksums_matmul)
 from .types import (DEFAULT_CONFIG, DetectEvidence, FaultReport,
                     ProtectConfig)
 
@@ -172,6 +178,24 @@ def conv_entry(name: str, w=None, cfg: ProtectConfig = DEFAULT_CONFIG,
                      w_shape=tuple(w.shape), w_dtype=_dtype_name(w.dtype))
 
 
+def grouped_matmul_entry(name: str, w=None,
+                         cfg: ProtectConfig = DEFAULT_CONFIG) -> PlanEntry:
+    """Entry for expert-batched O[g] = D[g] @ W[g]. A concrete (E, K, M)
+    expert stack also gets per-expert block checksums and locator sums
+    (the stacked matmul encoders, one slice per expert), so the at-rest
+    audit covers expert weights at block resolution and the repair rung
+    can solve single-block damage; a stage-stacked (reps, E, K, M) leaf
+    stays fingerprint-only, its checksums derived per call from the
+    weight."""
+    e = PlanEntry(name, OpSpec("grouped_matmul"), cfg)
+    if w is not None:
+        e.w_shape, e.w_dtype = tuple(w.shape), _dtype_name(w.dtype)
+        if w.dim() == 3:
+            e.wck = stacked_weight_checksums_matmul(w, cfg.col_chunk)
+            e.wlc = stacked_weight_locators_matmul(w, cfg.col_chunk)
+    return e
+
+
 # --------------------------------------------------------------------------
 # the unified protected-op entry point
 # --------------------------------------------------------------------------
@@ -222,8 +246,20 @@ def protect_op(op: OpSpec, inputs, entry: Optional[PlanEntry] = None,
                               padding=op.padding, groups=op.groups,
                               wck=wck, cfg=use_cfg, o=o, mode=mode,
                               detected=detected)
-    raise NotImplementedError(
-        f"protect_op: op kind {op.kind!r} is not ported yet")
+    if op.kind == "grouped_matmul":
+        if o is not None or bias is not None:
+            # silently dropping either would report clean verdicts on
+            # operands the op never saw
+            raise NotImplementedError(
+                "protect_op: grouped_matmul does not support `o` injection "
+                "or bias")
+        if detected is not None:
+            raise NotImplementedError(
+                "protect_op: grouped_matmul does not support an external "
+                "`detected` gate (per-group gates would need a vector)")
+        return protected_grouped_matmul(d, w, wck=wck, cfg=use_cfg,
+                                        mode=mode)
+    raise ValueError(f"unknown op kind {op.kind!r}")
 
 
 def correct_op(op: OpSpec, inputs, entry: Optional[PlanEntry] = None,
@@ -363,6 +399,9 @@ def protect_site(name: str, inputs, *, entry: Optional[PlanEntry] = None,
         else None
     if op is None:
         op = entry.op if entry is not None else OpSpec("matmul")
+    if op.kind == "grouped_matmul":
+        # per-group gates would need a vector; grouped sites re-detect
+        detected = None
     if o is None and op.kind == "matmul":
         # serving-drill seam: an ambient fault hook at this exact path
         # (injection.fault_scope) corrupts the raw output, which then takes
@@ -386,16 +425,6 @@ def protect_site(name: str, inputs, *, entry: Optional[PlanEntry] = None,
             return out.reshape(*lead, m), rep
     return protect_op(op, inputs, entry=entry, cfg=use_cfg, o=o, mode=mode,
                       detected=detected)
-
-
-def _site_product(d2, w, cfg: Optional[ProtectConfig]):
-    """A site's raw product by the site's own route - the kernel's O where
-    the config pins the fused kernel, the plain product otherwise - so the
-    rows a fault hook leaves alone stay bitwise the clean path's."""
-    if cfg is not None and cfg.enabled and cfg.use_fused_kernel:
-        from repro_torch.kernels import ops as kops
-        return kops.abft_matmul(d2.contiguous(), w)[0]
-    return matmul_raw(d2, w)
 
 
 # --------------------------------------------------------------------------
@@ -627,13 +656,15 @@ def _block_sites(prefix: str, kind: str, cfg, stack: int,
                  rows: int) -> List[OpSite]:
     """GEMM sites of one transformer block, keyed by the exact param-tree
     paths models.transformer.init_params creates; `rows` (the planned
-    batch*seq) gives each site its OpShape."""
+    batch*seq) gives each plain-matmul site its OpShape. grouped_matmul
+    sites stay shapeless (their per-expert rows depend on the routing)."""
     d, hd = cfg.d_model, cfg.head_dim
     mm = OpSpec("matmul")
 
-    def site(rel, k_dim, m):
-        return OpSite(f"{prefix}/{rel}", mm, k_dim,
-                      shape=OpShape(n=rows, m=m, ch=k_dim), stack=stack)
+    def site(rel, k_dim, m=0, op=mm):
+        shape = OpShape(n=rows, m=m, ch=k_dim) \
+            if m and op.kind == "matmul" else None
+        return OpSite(f"{prefix}/{rel}", op, k_dim, shape=shape, stack=stack)
 
     if kind.startswith("attn"):
         q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -654,9 +685,17 @@ def _block_sites(prefix: str, kind: str, cfg, stack: int,
                 site("rec/gate_a", w, w), site("rec/gate_i", w, w),
                 site("rec/out", w, d)]
     if kind == "moe":
-        raise NotImplementedError(
-            f"protection_spec: {kind!r} blocks are not ported yet "
-            "(ROADMAP item 1.7)")
+        ff = cfg.moe_d_ff or cfg.d_ff
+        g = OpSpec("grouped_matmul")
+        sites = [site("moe/router", d, cfg.num_experts),
+                 site("moe/gate", d, op=g), site("moe/up", d, op=g),
+                 site("moe/down", ff, op=g)]
+        if cfg.n_shared_experts:
+            sh = ff * cfg.n_shared_experts
+            sites += [site("moe/shared/gate", d, sh),
+                      site("moe/shared/up", d, sh),
+                      site("moe/shared/down", sh, d)]
+        return sites
     raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -717,19 +756,29 @@ def protection_spec(arch_cfg, batch: int = 8,
 # --------------------------------------------------------------------------
 
 def _fingerprint_of(w) -> Tuple[float, float]:
-    w32 = w.detach().to(torch.float32)
-    return float(torch.sum(w32)), float(torch.sum(torch.abs(w32)))
+    """(sum, sum of |w|) of a weight in fp32. A leaf of more than
+    ENCODE_SLAB elements (an expert stack) is summed a slab of leading
+    rows at a time, so no fp32 copy of it is made."""
+    w = w.detach()
+    if w.numel() <= ENCODE_SLAB or w.dim() < 2:
+        w32 = w.to(torch.float32)
+        return float(torch.sum(w32)), float(torch.sum(torch.abs(w32)))
+    flat = w.reshape(-1, w.shape[-1])
+    per = max(1, ENCODE_SLAB // flat.shape[1])
+    sums = torch.zeros(2, dtype=torch.float64, device=w.device)
+    for r0 in range(0, flat.shape[0], per):
+        w32 = flat[r0:r0 + per].to(torch.float32)
+        sums += torch.stack([torch.sum(w32),
+                             torch.sum(torch.abs(w32))]).double()
+    return tuple(float(x) for x in sums.tolist())
 
 
-def stacked_weight_checksums_matmul(w, col_chunk: int) -> WeightChecksums:
-    """Offline checksums of a stacked (reps, K, M) weight: one encode per
-    repeat slice, stored with a matching leading reps axis so the stage
-    loop hands each repeat its own slice."""
-    per = [weight_checksums_matmul(w[i], col_chunk)
-           for i in range(int(w.shape[0]))]
-    return WeightChecksums(torch.stack([p.cw1 for p in per]),
-                           torch.stack([p.cw2 for p in per]),
-                           pick_chunk(int(w.shape[-1]), col_chunk))
+# Offline checksums of a stacked (reps, K, M) stage weight or an (E, K, M)
+# expert stack: one encode per leading-axis slice, stored with that axis so
+# the stage loop hands each repeat its slice. It is the encode
+# protected_grouped_matmul makes per call, and the audit re-encodes through
+# it, so the recipes cannot drift.
+stacked_weight_checksums_matmul = grouped_weight_checksums
 
 
 def stacked_weight_locators_matmul(w, col_chunk: int) -> C.WeightLocators:
@@ -750,6 +799,8 @@ def _site_entry(site: OpSite, w, cfg: ProtectConfig) -> PlanEntry:
     if site.op.kind == "conv":
         e = conv_entry(site.path, w, cfg, stride=site.op.stride,
                        pad=site.op.pad, groups=site.op.groups)
+    elif site.op.kind == "grouped_matmul":
+        e = grouped_matmul_entry(site.path, w, cfg)
     elif w is None:
         e = PlanEntry(site.path, site.op, cfg)
     elif site.stack:
@@ -894,8 +945,9 @@ def build_plan(params, arch_cfg, cost_model: Optional[CostModel] = None,
     if profile_kernels:
         meta["kernel_profile"] = kprof
         if not kprof and entries:
-            # only shapeless sites in this spec - say so instead of
-            # letting the caller believe the calibration pass ran
+            # only shapeless sites (grouped/moe experts) in this spec -
+            # say so instead of letting the caller believe the
+            # calibration pass ran
             logging.getLogger("repro_torch.plan").warning(
                 "build_plan(profile_kernels=True): no profilable sites "
                 "in this spec (every site lacks an OpShape); plan built "
@@ -931,7 +983,8 @@ def force_fused_matmul(plan: ProtectionPlan,
                        ) -> ProtectionPlan:
     """Pin the fused kernel route on every enabled plain-matmul entry
     regardless of any profile; `tiles` overrides the partial
-    granularity."""
+    granularity. Grouped entries keep their route, as the JAX package's
+    force_fused_matmul leaves them."""
     entries = {}
     for path, e in plan.entries.items():
         if e.op.kind == "matmul" and e.cfg.enabled:

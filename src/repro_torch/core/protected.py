@@ -6,9 +6,16 @@ regions, each carrying independent checksums. The error-free cost is one
 pass over D (the C_d encode), the chunked output summations (one pass
 over O, or the abft_matmul kernel's epilogue), and the O(K)-sized checksum
 dots; the correction ladder runs only when CoC-D flags.
+
+The grouped GEMM (protected_grouped_matmul, the MoE experts) gives each
+group its own checksums (the paper's grouped extension, SS5.2: groups
+never mix, so per-group invariants are exact) and runs the clean path
+batched over the groups: one product, one encode, one compare, whatever
+the number of groups.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -18,7 +25,7 @@ from . import checksums as C
 from . import schemes as S
 from . import thresholds as TH
 from . import types as T
-from .workflow import run_ladder
+from .workflow import host_read, run_ladder
 
 F32 = torch.float32
 
@@ -55,6 +62,17 @@ def matmul_raw(d2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (d2.to(F32) @ w.to(F32)).to(d2.dtype)
 
 
+def _site_product(d2, w, cfg: Optional[T.ProtectConfig]):
+    """A site's raw product by the site's own route - the kernel's O where
+    the config pins the fused kernel, the plain product otherwise - so the
+    rows a fault hook leaves alone, and what the ladder recomputes, stay
+    bitwise the clean path's."""
+    if cfg is not None and cfg.enabled and cfg.use_fused_kernel:
+        from repro_torch.kernels import ops as kops
+        return kops.abft_matmul(d2.contiguous(), w)[0]
+    return matmul_raw(d2, w)
+
+
 def _iota(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=F32, device=device)
 
@@ -63,16 +81,14 @@ def _iota(n: int, device) -> torch.Tensor:
 # shared multischeme scaffolding
 # --------------------------------------------------------------------------
 
-def _detect_invariants(c5, c6, c7, s5, s6, s7, tau5, rows: int, cols: int,
-                       weighted: bool):
-    """CoC-D: compare the scalar invariant (and optionally the two
-    index-weighted ones) against their thresholds. Returns (flag, score),
-    both left on the device: score is the max |C - S| / tau evidence
-    ratio (>1 on a mismatch, +inf on non-finite values)."""
+def _invariant_evidence(c5, c6, c7, s5, s6, s7, tau5, rows: int, cols: int,
+                        weighted: bool):
+    """Per chunk and invariant (a leading axis of 1, or 3 when weighted):
+    (mismatch, |C - S| / tau evidence ratio, +inf on non-finite values)."""
+    t5 = torch.broadcast_to(tau5, c5.shape)
     if not weighted:
-        c, s, t = c5, s5, torch.broadcast_to(tau5, c5.shape)
+        c, s, t = c5[None], s5[None], t5[None]
     else:
-        t5 = torch.broadcast_to(tau5, c5.shape)
         c = torch.stack([c5, c6, c7])
         s = torch.stack([s5, s6, s7])
         t = torch.stack([t5, TH.tau_weighted(t5, rows),
@@ -81,7 +97,18 @@ def _detect_invariants(c5, c6, c7, s5, s6, s7, tau5, rows: int, cols: int,
     ratio = torch.where(torch.isfinite(c32) & torch.isfinite(s32),
                         torch.abs(c32 - s32) / t,
                         torch.full_like(c32, math.inf))
-    return torch.any(TH.mismatch(c, s, t)), torch.max(ratio)
+    return TH.mismatch(c, s, t), ratio
+
+
+def _detect_invariants(c5, c6, c7, s5, s6, s7, tau5, rows: int, cols: int,
+                       weighted: bool):
+    """CoC-D: compare the scalar invariant (and optionally the two
+    index-weighted ones) against their thresholds. Returns (flag, score),
+    both left on the device: score is the max |C - S| / tau evidence
+    ratio (>1 on a mismatch, +inf on non-finite values)."""
+    mis, ratio = _invariant_evidence(c5, c6, c7, s5, s6, s7, tau5, rows,
+                                     cols, weighted)
+    return torch.any(mis), torch.max(ratio)
 
 
 def _verify_invariants(cs: T.OutputChecksums, ss: T.OutputSums, tau5,
@@ -170,40 +197,44 @@ class _ChunkedChecksums(NamedTuple):
 
 
 def _encode_d_chunked(d2: torch.Tensor, rb: int):
-    n, k = d2.shape
-    d32 = d2.to(F32).reshape(n // rb, rb, k)
-    cd1 = torch.sum(d32, dim=1)
-    cd2 = torch.einsum("brk,r->bk", d32, _iota(rb, d2.device))
+    """(cd1, cd2) (nb, K) of D[N, K]; a leading group axis leads them."""
+    *lead, n, k = d2.shape
+    d32 = d2.to(F32).reshape(*lead, n // rb, rb, k)
+    cd1 = torch.sum(d32, dim=-2)
+    cd2 = torch.einsum("...brk,r->...bk", d32, _iota(rb, d2.device))
     return cd1, cd2
 
 
 def _scalar_checksums(cd1, cd2, wck: WeightChecksums) -> _ChunkedChecksums:
     """c5/c6/c7 and the |.| threshold dot as ONE stacked (3nb,K)@(K,3mb)
-    product."""
-    nb, mb = cd1.shape[0], wck.cw1.shape[0]
-    lhs = torch.cat([cd1, cd2, torch.abs(cd1)], dim=0)
-    rhs = torch.cat([wck.cw1, wck.cw2, torch.abs(wck.cw1)], dim=0)
-    out = lhs @ rhs.T
+    product (batched over a leading group axis of every operand)."""
+    nb, mb = cd1.shape[-2], wck.cw1.shape[-2]
+    lhs = torch.cat([cd1, cd2, torch.abs(cd1)], dim=-2)
+    rhs = torch.cat([wck.cw1, wck.cw2, torch.abs(wck.cw1)], dim=-2)
+    out = lhs @ rhs.transpose(-1, -2)
     return _ChunkedChecksums(cd1, cd2, wck.cw1, wck.cw2,
-                             out[:nb, :mb], out[nb:2 * nb, :mb],
-                             out[:nb, mb:2 * mb], out[2 * nb:, 2 * mb:])
+                             out[..., :nb, :mb], out[..., nb:2 * nb, :mb],
+                             out[..., :nb, mb:2 * mb],
+                             out[..., 2 * nb:, 2 * mb:])
 
 
 def _chunk_sums(o: torch.Tensor, rb: int, cb: int):
     """Per-chunk s5/s6/s7 of O[N,M] as ONE constant-weight
-    (nb*mb, rb*cb) @ (rb*cb, 3) product, plus the per-chunk sumsq."""
-    n, m = o.shape
+    (nb*mb, rb*cb) @ (rb*cb, 3) product, plus the per-chunk sumsq (a
+    leading group axis of O leads them)."""
+    *lead, n, m = o.shape
     nb, mb = n // rb, m // cb
-    x = (o.to(F32).reshape(nb, rb, mb, cb).permute(0, 2, 1, 3)
-         .reshape(nb * mb, rb * cb))
+    x = (o.to(F32).reshape(-1, nb, rb, mb, cb).permute(0, 1, 3, 2, 4)
+         .reshape(-1, rb * cb))
     dev = o.device
     enc = torch.stack([torch.ones((rb * cb,), dtype=F32, device=dev),
                        _iota(rb, dev).repeat_interleave(cb),
                        _iota(cb, dev).repeat(rb)])
     s = x @ enc.T
     sumsq = torch.sum(x * x, dim=1)
-    return (s[:, 0].reshape(nb, mb), s[:, 1].reshape(nb, mb),
-            s[:, 2].reshape(nb, mb), sumsq.reshape(nb, mb))
+    shape = (*lead, nb, mb)
+    return (s[:, 0].reshape(shape), s[:, 1].reshape(shape),
+            s[:, 2].reshape(shape), sumsq.reshape(shape))
 
 
 class BiasAdjust(NamedTuple):
@@ -254,9 +285,11 @@ def protect_matmul_output(
         wck = weight_checksums_matmul(w, cb)
     if recompute_fn is None:
         def recompute_fn():
-            fresh = d2.to(F32) @ w.to(F32)
+            # the site's own route, so what it recomputes rounds as the
+            # clean output did
+            fresh = _site_product(d2, w, cfg)
             if bias is not None:
-                fresh = fresh + bias.to(F32)
+                fresh = (fresh.to(F32) + bias.to(F32)).to(fresh.dtype)
             return fresh.to(o.dtype)
 
     cd1, cd2 = _encode_d_chunked(d2, rb)
@@ -381,31 +414,33 @@ def protect_matmul_output(
     rungs = _ladder_rungs(cfg, _run_scheme)
     out, rep = run_ladder(o, detected, rungs, _verify, recompute_fn)
     if o.dtype != F32 and rep.corrected_by in (T.COC, T.RC, T.CLC, T.FC):
-        out = _recompute_located(o, out, d2, w, bias)
+        out, rep = _recompute_located(o, out, rep, recompute_fn, _verify)
     return out, rep
 
 
-def _recompute_located(o_in, o_fixed, d2, w, bias):
-    """Recompute, as fp32 dot products rounded once, the elements a
-    checksum scheme changed in a sub-fp32 output.
+def _recompute_located(o_in, o_fixed, rep, recompute_fn, verify_fn):
+    """(output, report) of a checksum scheme's fix of a sub-fp32 output,
+    its changed elements taken from recompute_fn's product (the site's
+    own route).
 
     A scheme's fix is O + (C - S), and S sums the rounded output: in bf16
     the fix carries the chunk's summed rounding noise, ~sqrt(rb*cb) ulps
     (e.g. 0.69 on an element of 0.96 for a 128 x 960 chunk), where the
-    JAX package stops (ROADMAP 3.2). The scheme has located the elements;
-    their dot products restore them to the clean product's rounding."""
+    JAX package stops (ROADMAP 3.2). The route's own product restores the
+    located elements bitwise after a transient fault (a dot product in
+    another summation order can round them an ulp away). The same noise
+    can shift CoC's weighted ratios by an index: the fix then lands on a
+    clean element, moving it away from the product, and passes
+    verification within that noise (ROADMAP 3.9). Such a fix is refused:
+    the output is the route's product, reported as a recompute and
+    verified."""
+    fresh = recompute_fn()
     changed = o_fixed != o_in
-    rows = torch.nonzero(torch.any(changed, dim=1)).flatten()
-    cols = torch.nonzero(torch.any(changed, dim=0)).flatten()
-    if rows.numel() == 0:
-        return o_fixed
-    ix = (rows[:, None], cols[None, :])
-    sub = d2[rows].to(F32) @ w[:, cols].to(F32)
-    if bias is not None:
-        sub = sub + bias[cols].to(F32)
-    out = o_fixed.clone()
-    out[ix] = torch.where(changed[ix], sub.to(o_fixed.dtype), o_fixed[ix])
-    return out
+    dist = lambda t: (t.to(F32) - fresh.to(F32)).abs()
+    if not host_read(torch.any(changed & (dist(o_fixed) > dist(o_in)))):
+        return torch.where(changed, fresh, o_fixed), rep
+    residual = 0 if host_read(verify_fn(fresh)) else 1
+    return fresh, T.FaultReport(1, T.RECOMPUTE, residual)
 
 
 def protected_matmul(
@@ -484,7 +519,6 @@ def _backward_product(a, b, cfg: T.ProtectConfig, hook):
     workflow as an injected output, as core.plan.protect_site does."""
     if hook is None:
         return protected_matmul(a, b, cfg=cfg)
-    from .plan import _site_product
     o = hook(_site_product(a, b, cfg))
     return protect_matmul_output(a, b, o, cfg=cfg)
 
@@ -672,3 +706,146 @@ def protected_conv(
 
     rungs = _ladder_rungs(cfg, _run_scheme)
     return run_ladder(o, detected, rungs, _verify, recompute_fn)
+
+
+# --------------------------------------------------------------------------
+# grouped / expert-batched GEMM (paper SS5.2 applied to MoE)
+# --------------------------------------------------------------------------
+
+# fp32 elements of one slab of a per-call weight encode: an expert stack
+# is encoded a slab of whole groups at a time, so the encode never holds
+# an fp32 copy of the stack (22.5 GB for one of Kimi-K2's)
+ENCODE_SLAB = 1 << 28
+
+
+def grouped_matmul_raw(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The plain product (G, N, K) @ (G, K, M) spelled as matmul_raw, in
+    one batched call (the JAX package's einsum("gnk,gkm->gnm",
+    preferred_element_type=F32).astype(d.dtype)): fp32 accumulation, one
+    rounding to D's type."""
+    if d.dtype == F32 or d.device.type == "cuda":
+        return torch.bmm(d, w.to(d.dtype))
+    return torch.bmm(d.to(F32), w.to(F32)).to(d.dtype)
+
+
+def grouped_weight_checksums(w: torch.Tensor, col_chunk: int
+                             ) -> WeightChecksums:
+    """weight_checksums_matmul of every group of W (G, K, M): cw1/cw2
+    (G, mb, K). Each slab of whole groups (at most ENCODE_SLAB elements:
+    one slab for all but the largest stacks) is made fp32 once and read
+    once, by ONE product with the two encoders (ones, the column index)
+    of a chunk."""
+    g, k, m = (int(x) for x in w.shape)
+    cb = pick_chunk(m, col_chunk)
+    mb = m // cb
+    enc = torch.stack([torch.ones((cb,), dtype=F32, device=w.device),
+                       _iota(cb, w.device)], dim=1)               # (cb, 2)
+    cw = torch.empty((g, k, mb, 2), dtype=F32, device=w.device)
+    per = max(1, ENCODE_SLAB // max(k * m, 1))
+    for s0 in range(0, g, per):
+        w32 = w[s0:s0 + per].to(F32).reshape(-1, cb)
+        cw[s0:s0 + per] = (w32 @ enc).reshape(-1, k, mb, 2)
+    cw = cw.permute(3, 0, 2, 1)                                   # (2,G,mb,K)
+    return WeightChecksums(cw[0].contiguous(), cw[1].contiguous(), cb)
+
+
+def _detect_groups(c5, c6, c7, s5, s6, s7, tau5, rows: int, cols: int,
+                   weighted: bool):
+    """_detect_invariants per group: (flag (G,) bool, score (G,) f32) of
+    (G, nb, mb) checksums and sums."""
+    mis, ratio = _invariant_evidence(c5, c6, c7, s5, s6, s7, tau5, rows,
+                                     cols, weighted)
+    per = lambda x: x.transpose(0, 1).reshape(c5.shape[0], -1)
+    return torch.any(per(mis), dim=1), torch.amax(per(ratio), dim=1)
+
+
+def protected_grouped_matmul(
+    d: torch.Tensor,
+    w: torch.Tensor,
+    wck: Optional[WeightChecksums] = None,
+    cfg: T.ProtectConfig = T.DEFAULT_CONFIG,
+    mode: Optional[str] = None,
+):
+    """Expert-batched protected GEMM O[g] = D[g] @ W[g] (D (G, N, K), W
+    (G, K, M)): each group carries its own checksums (the grouped
+    extension: groups never mix, so per-group invariants are exact).
+    `wck` carries the plan's offline per-expert checksums with a leading
+    group axis (stacked_weight_checksums_matmul); without it every group
+    is encoded from its runtime weight slice, in one batched encode.
+
+    The clean path is batched over the groups: the product is one
+    grouped_matmul_raw call (or one group-axis kernel launch with
+    `cfg.use_fused_kernel`), and the D encode, the chunk sums and the
+    CoC-D compare are batched tensor ops. In detect-only mode the evidence
+    is the max over groups (any flagged expert flags the op). Otherwise
+    the groups' flags are read in one host transfer and the correction
+    ladder runs for the flagged groups alone (the JAX package's vmap of
+    the gated ladder gives a clean group its own output unchanged); the
+    report is the max over groups of (detected, corrected_by,
+    residual)."""
+    if cfg is None or not cfg.enabled:
+        return _clean_result(grouped_matmul_raw(d, w), mode)
+    g, n, k = (int(x) for x in d.shape)
+    rb = pick_chunk(n, cfg.row_chunk)
+    if wck is not None and wck.cw1.shape[0] == g:
+        cb, cw1, cw2 = wck.col_chunk, wck.cw1, wck.cw2
+    else:
+        cw1, cw2, cb = grouped_weight_checksums(w, cfg.col_chunk)
+    cs = _scalar_checksums(*_encode_d_chunked(d, rb),
+                           WeightChecksums(cw1, cw2, cb))
+    c5, c6, c7, absdot = cs.c5, cs.c6, cs.c7, cs.absdot
+    pre = None
+    if cfg.use_fused_kernel:
+        from repro_torch.kernels import ops as kops
+        if mode == "detect_only":
+            # the single-launch detect path over the group axis
+            tau_a, tau_b = TH.tau_scalar_coeffs(k, d.dtype, cfg.tau_factor)
+            res = kops.abft_matmul_detect(
+                d.contiguous(), w, c5, c6, c7, absdot, rb=rb, cb=cb,
+                bk=(cfg.kernel_tiles or (0, 0, 256))[2], tau_a=tau_a,
+                tau_b=tau_b, weighted=cfg.detect_weighted)
+            if res is not None:
+                o, flag, score = res
+                return o, T.DetectEvidence(torch.max(flag), torch.max(score))
+        bm, bn, bk = cfg.kernel_tiles or (kops._tile(rb, 256),
+                                          kops._tile(cb, 256), 256)
+        if d.device.type == "cuda":
+            bm, bn = kops._tile(rb, bm), kops._tile(cb, bn)
+        o, parts = kops.abft_matmul(d.contiguous(), w, bm=bm, bn=bn, bk=bk)
+        pre = kops.chunk_sums_from_partials(parts, rb, cb, o=o)
+        route = lambda: kops.abft_matmul(d.contiguous(), w)[0]
+    else:
+        o = grouped_matmul_raw(d, w)
+        route = lambda: grouped_matmul_raw(d, w)
+    s5, s6, s7, sumsq = pre if pre is not None else _chunk_sums(o, rb, cb)
+    tau5 = TH.tau_scalar(sumsq, k, o.dtype, cfg.tau_factor, absdot)
+    flags, scores = _detect_groups(c5, c6, c7, s5, s6, s7, tau5, rb, cb,
+                                   cfg.detect_weighted)
+    if mode == "detect_only":
+        return o, T.DetectEvidence(torch.max(flags).to(torch.int32),
+                                   torch.max(scores))
+    if cfg.detect_only and mode != "correct":
+        det = torch.max(flags).to(torch.int32)
+        return o, T.FaultReport(det, 0, det)
+    hit = [i for i, f in enumerate(host_read(flags)) if f]
+    if not hit:
+        return o, T.FaultReport(0, 0, 0)
+    out, reps, fresh = o.clone(), [], []
+
+    def recompute(i):
+        # the whole grouped product by its route, once: a group's
+        # recomputed elements round as the clean product's did
+        if not fresh:
+            fresh.append(route())
+        return fresh[0][i]
+
+    for i in hit:
+        # the carried flag is the host value just read: no second read
+        out[i], rep = protect_matmul_output(
+            d[i], w[i], o[i], wck=WeightChecksums(cw1[i], cw2[i], cb),
+            cfg=cfg, recompute_fn=functools.partial(recompute, i),
+            mode="correct", detected=True)
+        reps.append(rep)
+    return out, T.FaultReport(max(int(r.detected) for r in reps),
+                              max(int(r.corrected_by) for r in reps),
+                              max(int(r.residual) for r in reps))

@@ -131,6 +131,16 @@ struct PartialsArgs {
   float* rowsum;
   float* sumsq;
   int rs_cols, ss_cols;
+  long long g_col, g_row, g_sq;   // elements from one group's sums to the next
+
+  // group g's sums
+  __device__ PartialsArgs at(int g) const {
+    PartialsArgs a = *this;
+    a.colsum += g * g_col;
+    a.rowsum += g * g_row;
+    a.sumsq += g * g_sq;
+    return a;
+  }
 };
 
 template <int TM, int TN>
@@ -203,6 +213,22 @@ struct DetectArgs {
   int* flag;
   float* score;
   int* chunk_counters;   // one per chunk, zero on entry and exit
+  long long g_part;      // floats of part per group
+  long long g_chunks;    // chunks per group: c5..absdot, flag, score, counters
+
+  // group g's checksums, verdicts, scratch and counters
+  __device__ DetectArgs at(int g) const {
+    DetectArgs a = *this;
+    a.part += g * g_part;
+    a.c5 += g * g_chunks;
+    a.c6 += g * g_chunks;
+    a.c7 += g * g_chunks;
+    a.absdot += g * g_chunks;
+    a.flag += g * g_chunks;
+    a.score += g * g_chunks;
+    a.chunk_counters += g * g_chunks;
+    return a;
+  }
 };
 
 template <int TM, int TN>
@@ -800,8 +826,13 @@ __device__ void finish_chunks(const DetectArgs& d, int row0, int col0, int n,
   }
 }
 
-// Block (x, y, z): output columns [64 x, 64 x + 64), rows [ROWS y, ROWS y +
-// ROWS), K tiles [per z, per z + per) of k_step<T>(). With splits > 1 the
+// Block (x, y, z): output columns [64 x, 64 x + 64) of group y / rtiles,
+// rows [ROWS (y % rtiles), + ROWS), K tiles [per z, per z + per) of
+// k_step<T>(). Group g's D, W and O start gd, gw and go elements past
+// group 0's (64-bit: an expert stack passes 2^31 elements) and its sums
+// where Args::at(g) puts them; every group is tiled as a product of its
+// own shape would be, so its O is bitwise what a launch of that group
+// alone gives. With splits > 1 the
 // launch makes the `splits` blocks of a tile one cluster (rank z): each
 // leaves its fp32 tile in its shared memory, every rank sums a share of the
 // elements over all ranks in rank order into rank 0's tile (distributed
@@ -810,11 +841,17 @@ template <typename T, int ROWS, bool kWT, typename Args>
 __global__ void __launch_bounds__(kWgThreads)
 gemm_kernel(const T* __restrict__ D, const T* __restrict__ W,
             T* __restrict__ O, int n, int k, int m, int per, int splits,
-            int vec, Args args) {
+            int vec, int rtiles, long long gd, long long gw, long long go,
+            Args args0) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kStep = k_step<T>();
   const int tid = threadIdx.x;
-  const int col0 = blockIdx.x * WM, row0 = blockIdx.y * ROWS;
+  const int g = blockIdx.y / rtiles;
+  const int col0 = blockIdx.x * WM, row0 = blockIdx.y % rtiles * ROWS;
+  D += g * gd;
+  W += g * gw;
+  O += g * go;
+  const Args args = args0.at(g);
   const int z = blockIdx.z, kt0 = z * per;
   const int nkt = min(per, (k > kStep ? (k + kStep - 1) / kStep : 1) - kt0);
   // a pushing split stores into rank 0's shared memory, so every block of
@@ -954,9 +991,17 @@ int detect_seg(int tn, int cb) {
   return seg;
 }
 
+// G products of one shape: group g's operands gd, gw and go elements past
+// group 0's
+struct Groups {
+  int count;
+  long long d, w, o;
+};
+
 template <typename T, int ROWS, bool kWT, typename Args>
 int launch_gemm(const void* d, const void* w, void* o, int n, int k, int m,
-                const Tiling& t, const Args& args, cudaStream_t s) {
+                const Tiling& t, const Groups& gr, const Args& args,
+                cudaStream_t s) {
   // the ring and tail, and rank 0's receiving area when the splits push
   constexpr int most = smem_bytes<T>(ROWS) + kPushRows * WM * 4;
   const int bytes = smem_bytes<T>(ROWS)
@@ -978,9 +1023,13 @@ int launch_gemm(const void* d, const void* w, void* o, int n, int k, int m,
   constexpr int kV = 16 / (int)sizeof(T);   // elements per 16-byte copy
   const bool vec = k % kV == 0 && (kWT || m % kV == 0)
                    && reinterpret_cast<uintptr_t>(d) % 16 == 0
-                   && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+                   && reinterpret_cast<uintptr_t>(w) % 16 == 0
+                   && gr.d % kV == 0 && gr.w % kV == 0;
+  const int rtiles = (n + ROWS - 1) / ROWS;
+  if (gr.count < 1 || (long long)rtiles * gr.count > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((m + WM - 1) / WM, (n + ROWS - 1) / ROWS, t.splits);
+  cfg.gridDim = dim3((m + WM - 1) / WM, rtiles * gr.count, t.splits);
   cfg.blockDim = dim3(kWgThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -994,34 +1043,35 @@ int launch_gemm(const void* d, const void* w, void* o, int n, int k, int m,
   return (int)cudaLaunchKernelEx(
       &cfg, gemm_kernel<T, ROWS, kWT, Args>, static_cast<const T*>(d),
       static_cast<const T*>(w), static_cast<T*>(o), n, k, m, t.per, t.splits,
-      vec ? 1 : 0, args);
+      vec ? 1 : 0, rtiles, gr.d, gr.w, gr.o, args);
 }
 
 template <typename T, bool kWT, typename Args>
 int dispatch_rows(const void* d, const void* w, void* o, int n, int k, int m,
-                  const Tiling& t, const Args& args, cudaStream_t s) {
+                  const Tiling& t, const Groups& g, const Args& args,
+                  cudaStream_t s) {
   switch (t.tm) {
-    case 8: return launch_gemm<T, 8, kWT>(d, w, o, n, k, m, t, args, s);
-    case 16: return launch_gemm<T, 16, kWT>(d, w, o, n, k, m, t, args, s);
-    case 32: return launch_gemm<T, 32, kWT>(d, w, o, n, k, m, t, args, s);
-    case 64: return launch_gemm<T, 64, kWT>(d, w, o, n, k, m, t, args, s);
-    case 128: return launch_gemm<T, 128, kWT>(d, w, o, n, k, m, t, args, s);
+    case 8: return launch_gemm<T, 8, kWT>(d, w, o, n, k, m, t, g, args, s);
+    case 16: return launch_gemm<T, 16, kWT>(d, w, o, n, k, m, t, g, args, s);
+    case 32: return launch_gemm<T, 32, kWT>(d, w, o, n, k, m, t, g, args, s);
+    case 64: return launch_gemm<T, 64, kWT>(d, w, o, n, k, m, t, g, args, s);
+    case 128: return launch_gemm<T, 128, kWT>(d, w, o, n, k, m, t, g, args, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename Args>
 int dispatch(int dtype, int w_layout, const void* d, const void* w, void* o,
-             int n, int k, int m, const Tiling& t, const Args& args,
-             cudaStream_t s) {
+             int n, int k, int m, const Tiling& t, const Groups& g,
+             const Args& args, cudaStream_t s) {
   if (dtype == 0 && w_layout == 0)
-    return dispatch_rows<float, false>(d, w, o, n, k, m, t, args, s);
+    return dispatch_rows<float, false>(d, w, o, n, k, m, t, g, args, s);
   if (dtype == 0 && w_layout == 1)
-    return dispatch_rows<float, true>(d, w, o, n, k, m, t, args, s);
+    return dispatch_rows<float, true>(d, w, o, n, k, m, t, g, args, s);
   if (dtype == 1 && w_layout == 0)
-    return dispatch_rows<__nv_bfloat16, false>(d, w, o, n, k, m, t, args, s);
+    return dispatch_rows<__nv_bfloat16, false>(d, w, o, n, k, m, t, g, args, s);
   if (dtype == 1 && w_layout == 1)
-    return dispatch_rows<__nv_bfloat16, true>(d, w, o, n, k, m, t, args, s);
+    return dispatch_rows<__nv_bfloat16, true>(d, w, o, n, k, m, t, g, args, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1046,52 +1096,64 @@ extern "C" int repro_abft_tiling(int n, int k, int m, int dtype, int cb,
   return 0;
 }
 
-// D (n, k), W (k, m) with w_layout 0 (row-major) or the transposed view of
-// an (m, k) row-major tensor (w_layout 1), O (n, m) row-major; dtype 0 is
-// float32, 1 is bfloat16 (all three tensors). colsum has m columns, rowsum
-// rs_cols and sumsq ss_cols; rows of colsum/sumsq are partial row tiles of
-// pbm rows, columns of rowsum/sumsq partial column tiles of pbn columns,
-// pbm and pbn powers of two dividing the block tile (repro_abft_tiling).
-// Only the tiles that hold elements of O are written. Returns the launch's
-// error, or cudaGetLastError().
-extern "C" int repro_abft_matmul(const void* d, const void* w, void* o,
-                                 int dtype, int w_layout, int n, int k, int m,
-                                 int pbm, int pbn, float* colsum,
-                                 float* rowsum, float* sumsq, int rs_cols,
-                                 int ss_cols, void* stream) {
-  if (n < 1 || k < 0 || m < 1 || (dtype != 0 && dtype != 1))
+// G products O_g = D_g @ W_g of one shape in one launch (the group axis:
+// the counterpart of the Pallas kernel under jax.vmap; one product is G =
+// 1). D_g (n, k), W_g (k, m) with w_layout 0 (row-major) or the transposed
+// view of an (m, k) row-major tensor (w_layout 1), O_g (n, m) row-major,
+// group g's at gd, gw and go elements past group 0's; dtype 0 is float32, 1 is bfloat16 (all
+// three tensors). colsum has m columns, rowsum rs_cols and sumsq ss_cols;
+// rows of colsum/sumsq are partial row tiles of pbm rows, columns of
+// rowsum/sumsq partial column tiles of pbn columns, pbm and pbn powers of
+// two dividing the block tile (repro_abft_tiling); group g's sums lie
+// g_col, g_row and g_sq floats past group 0's. Only the tiles that hold
+// elements of O are written. Returns the launch's error, or
+// cudaGetLastError().
+extern "C" int repro_abft_matmul(
+    const void* d, const void* w, void* o, int dtype, int w_layout,
+    int groups, long long gd, long long gw, long long go, int n, int k, int m,
+    int pbm, int pbn, float* colsum, float* rowsum, float* sumsq, int rs_cols,
+    int ss_cols, long long g_col, long long g_row, long long g_sq,
+    void* stream) {
+  if (n < 1 || k < 0 || m < 1 || (dtype != 0 && dtype != 1) || groups < 1)
     return (int)cudaErrorInvalidValue;
   const Tiling t = choose_tiling(n, k, m, dtype);
   if (pbm < 1 || pbm > t.tm || t.tm % pbm || pbn < 1 || pbn > t.tn
       || t.tn % pbn)
     return (int)cudaErrorInvalidValue;
-  const PartialsArgs args{pbm, pbn, colsum, rowsum, sumsq, rs_cols, ss_cols};
-  const int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t, args,
+  const PartialsArgs args{pbm,    pbn,     colsum, rowsum, sumsq,
+                          rs_cols, ss_cols, g_col,  g_row,  g_sq};
+  const int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t,
+                           Groups{groups, gd, gw, go}, args,
                            (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }
 
-// O = D @ W as above plus the CoC-D compare per (rb x cb) chunk, in one
-// launch: c5, c6, c7 and absdot are float32 (n / rb, m / cb); flag (int32)
-// and score (float32) likewise. part is float32 scratch of 3 * n * (m /
-// seg) elements, seg as repro_abft_tiling gives it; counters are (n / rb)
-// * (m / cb) int32 that are zero and that no other launch uses until this
-// one has ended (the kernel leaves them zero). rb must divide n and cb must
-// divide m. Returns the launch's error, or cudaGetLastError().
+// The G products as above plus the CoC-D compare per (rb x cb) chunk of
+// each, in one launch: c5, c6, c7 and absdot are float32 (G, n / rb, m /
+// cb); flag (int32) and score (float32) likewise. part is float32 scratch
+// of G * 3 * n * (m / seg) elements, seg as repro_abft_tiling gives it;
+// counters are G * (n / rb) * (m / cb) int32 that are zero and that no
+// other launch uses until this one has ended (the kernel leaves them
+// zero). rb must divide n and cb must divide m. Returns the launch's
+// error, or cudaGetLastError().
 extern "C" int repro_abft_matmul_detect(
-    const void* d, const void* w, void* o, int dtype, int w_layout, int n,
-    int k, int m, int rb, int cb, const float* c5, const float* c6,
-    const float* c7, const float* absdot, float tau_a, float tau_b,
-    int weighted, float* part, int* counters, int* flag, float* score,
-    void* stream) {
+    const void* d, const void* w, void* o, int dtype, int w_layout,
+    int groups, long long gd, long long gw, long long go, int n, int k, int m,
+    int rb, int cb, const float* c5, const float* c6, const float* c7,
+    const float* absdot, float tau_a, float tau_b, int weighted, float* part,
+    int* counters, int* flag, float* score, void* stream) {
   if (n < 1 || k < 0 || m < 1 || (dtype != 0 && dtype != 1) || rb < 1
-      || cb < 1 || n % rb || m % cb)
+      || cb < 1 || n % rb || m % cb || groups < 1)
     return (int)cudaErrorInvalidValue;
   const Tiling t = choose_tiling(n, k, m, dtype);
-  const DetectArgs args{rb,     cb,    detect_seg(t.tn, cb), part, c5, c6,
-                        c7,     absdot, tau_a, tau_b, weighted, flag, score,
-                        counters};
-  const int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t, args,
+  const int seg = detect_seg(t.tn, cb);
+  const DetectArgs args{rb,     cb,     seg,      part,     c5,
+                        c6,     c7,     absdot,   tau_a,    tau_b,
+                        weighted, flag, score,    counters,
+                        3LL * n * (m / seg),
+                        (long long)(n / rb) * (m / cb)};
+  const int err = dispatch(dtype, w_layout, d, w, o, n, k, m, t,
+                           Groups{groups, gd, gw, go}, args,
                            (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }

@@ -95,9 +95,10 @@ def abft_matmul(d: torch.Tensor, w: torch.Tensor, *, bm: int = 256,
     """Fused GEMM + checksum epilogue: (O, (colsum, rowsum, sumsq, bm, bn)).
     `bk` only enters the JAX package's granularity rule; on the card the
     partials are the aligned tiles (the kernel masks ragged edges and walks
-    K in its own steps)."""
-    n, k = d.shape
-    m = w.shape[1]
+    K in its own steps). With a leading group axis, (G, N, K) @ (G, K, M)
+    is one launch on the card and the rule is one group's."""
+    n, k = d.shape[-2:]
+    m = w.shape[-1]
     if d.device.type == "cuda":
         gm, gn = _tile(n, bm), _tile(m, bn)
     else:
@@ -111,7 +112,8 @@ def abft_matmul_detect(d: torch.Tensor, w: torch.Tensor, c5, c6, c7, absdot,
     """Single-launch GEMM + CoC-D compare per (rb x cb) detection chunk:
     (O, flag (nb, mb) int32, score (nb, mb) float32). c5/c6/c7/absdot are
     the per-chunk checksum predictions of the raw product (locally
-    index-weighted, without bias adjustments).
+    index-weighted, without bias adjustments). With a leading group axis
+    on D, W and the checksums, flag and score lead with it too.
 
     On a CPU tensor it keeps the JAX package's rule and returns None where
     the chunking is not a Pallas tile (rb, cb or the K tile under 8, a
@@ -119,12 +121,12 @@ def abft_matmul_detect(d: torch.Tensor, w: torch.Tensor, c5, c6, c7, absdot,
     partials route exactly where the JAX package does. A CUDA tensor always
     launches: the kernel masks any edge and its blocks need not be the
     chunk."""
-    n, k = d.shape
-    m = w.shape[1]
-    if d.device.type != "cuda":
-        if (min(rb, cb, _tile(k, bk)) < 8 or n % rb or m % cb
-                or tuple(c5.shape) != (n // rb, m // cb)):
-            return None
+    n, k = d.shape[-2:]
+    m = w.shape[-1]
+    if d.device.type != "cuda" and (
+            min(rb, cb, _tile(k, bk)) < 8 or n % rb or m % cb
+            or tuple(c5.shape[-2:]) != (n // rb, m // cb)):
+        return None
     return _abft_matmul_detect_kernel(d, w, c5, c6, c7, absdot, rb, cb,
                                       tau_a, tau_b, weighted)
 
@@ -145,7 +147,8 @@ def checksum_reduce(o: torch.Tensor, *, bm: int = 512, bn: int = 512
 
 
 def chunk_sums_from_partials(parts, rb: int, cb: int, o=None):
-    """Finish the epilogue partials into per-chunk (s5, s6, s7, sumsq).
+    """Finish the epilogue partials into per-chunk (s5, s6, s7, sumsq);
+    partials led by a group axis give sums led by it.
 
     colsum has full column resolution -> exact local m-weighting for s7;
     rowsum has full row resolution -> exact n-weighting for s6. When the
@@ -155,10 +158,10 @@ def chunk_sums_from_partials(parts, rb: int, cb: int, o=None):
     (where that would be a plain pass in the kernel's place), misalignment
     is an error."""
     colsum, rowsum, sumsq, bm, bn = parts
-    nt, m = colsum.shape
-    n = rowsum.shape[0]
+    *lead, nt, m = colsum.shape
+    n = rowsum.shape[-2]
     aligned = (rb % bm == 0 and cb % bn == 0
-               and nt * bm == n and rowsum.shape[1] * bn == m
+               and nt * bm == n and rowsum.shape[-1] * bn == m
                and n % rb == 0 and m % cb == 0)
     if not aligned:
         if o is None or o.device.type != "cpu":
@@ -169,14 +172,14 @@ def chunk_sums_from_partials(parts, rb: int, cb: int, o=None):
         return _ref.chunk_sums_ref(o, rb, cb)
     nb, mb = n // rb, m // cb
     dev = colsum.device
-    cs = colsum.reshape(nb, rb // bm, mb, cb)
-    rs = rowsum.reshape(nb, rb, mb, cb // bn)
-    s5 = torch.einsum("atbc->ab", cs)
-    s7 = torch.einsum("atbc,c->ab", cs, torch.arange(cb, dtype=F32,
-                                                      device=dev))
-    s6 = torch.einsum("arbt,r->ab", rs, torch.arange(rb, dtype=F32,
-                                                      device=dev))
-    sq = sumsq.reshape(nb, rb // bm, mb, cb // bn).sum(dim=(1, 3))
+    cs = colsum.reshape(*lead, nb, rb // bm, mb, cb)
+    rs = rowsum.reshape(*lead, nb, rb, mb, cb // bn)
+    s5 = torch.einsum("...atbc->...ab", cs)
+    s7 = torch.einsum("...atbc,c->...ab", cs, torch.arange(cb, dtype=F32,
+                                                            device=dev))
+    s6 = torch.einsum("...arbt,r->...ab", rs, torch.arange(rb, dtype=F32,
+                                                            device=dev))
+    sq = sumsq.reshape(*lead, nb, rb // bm, mb, cb // bn).sum(dim=(-3, -1))
     return s5, s6, s7, sq
 
 

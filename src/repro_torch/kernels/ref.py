@@ -24,19 +24,21 @@ def _ceil_to(n: int, t: int) -> int:
 def checksum_reduce_ref(o: torch.Tensor, bm: int, bn: int) -> Tuple:
     """(colsum (N/bm, M), rowsum (N, M/bn), sumsq (N/bm, M/bn),
     wcolsum (N/bm, M)) of O[N, M]; wcolsum weights each row by its index
-    within its row tile."""
-    n, m = o.shape
+    within its row tile. Leading (group) axes of O lead every result."""
+    *lead, n, m = o.shape
     o32 = o.to(F32)
     np_, mp = _ceil_to(n, bm), _ceil_to(m, bn)
     if (np_, mp) != (n, m):
         o32 = F.pad(o32, (0, mp - m, 0, np_ - n))
-    tiled = o32.reshape(np_ // bm, bm, mp)
-    colsum = tiled.sum(dim=1)
-    rowsum = o32.reshape(np_, mp // bn, bn).sum(dim=2)
-    sumsq = (o32 * o32).reshape(np_ // bm, bm, mp // bn, bn).sum(dim=(1, 3))
-    wcolsum = torch.einsum("tbm,b->tm", tiled,
+    tiled = o32.reshape(*lead, np_ // bm, bm, mp)
+    colsum = tiled.sum(dim=-2)
+    rowsum = o32.reshape(*lead, np_, mp // bn, bn).sum(dim=-1)
+    sumsq = (o32 * o32).reshape(*lead, np_ // bm, bm, mp // bn,
+                                bn).sum(dim=(-3, -1))
+    wcolsum = torch.einsum("...tbm,b->...tm", tiled,
                            torch.arange(bm, dtype=F32, device=o.device))
-    return colsum[:, :m], rowsum[:n], sumsq, wcolsum[:, :m]
+    return (colsum[..., :m], rowsum[..., :n, :], sumsq,
+            wcolsum[..., :m])
 
 
 def matmul_ref(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,7 +50,9 @@ def matmul_ref(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def abft_matmul_ref(d: torch.Tensor, w: torch.Tensor, bm: int, bn: int
                     ) -> Tuple[torch.Tensor, Tuple]:
     """fp32 matmul plus the same tile partials, taken from the fp32
-    product as the kernel takes them; O is rounded once to D's type."""
+    product as the kernel takes them; O is rounded once to D's type. A
+    leading group axis, (G, N, K) @ (G, K, M), is the grouped kernel's
+    plain version: every result leads with it."""
     acc = d.to(F32) @ w.to(F32)
     colsum, rowsum, sumsq, _ = checksum_reduce_ref(acc, bm, bn)
     return acc.to(d.dtype), (colsum, rowsum, sumsq, bm, bn)
@@ -91,17 +95,18 @@ def conv2d_ref(d: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 
 def chunk_sums_ref(o: torch.Tensor, rb: int, cb: int):
-    """Per-chunk (s5, s6, s7, sumsq) straight from O."""
-    n, m = o.shape
+    """Per-chunk (s5, s6, s7, sumsq) straight from O (leading group axes
+    lead the sums)."""
+    *lead, n, m = o.shape
     nb, mb = n // rb, m // cb
-    o4 = o.to(F32).reshape(nb, rb, mb, cb)
+    o4 = o.to(F32).reshape(*lead, nb, rb, mb, cb)
     dev = o.device
-    s5 = torch.einsum("arbc->ab", o4)
-    s6 = torch.einsum("arbc,r->ab", o4, torch.arange(rb, dtype=F32,
-                                                      device=dev))
-    s7 = torch.einsum("arbc,c->ab", o4, torch.arange(cb, dtype=F32,
-                                                      device=dev))
-    sumsq = torch.einsum("arbc,arbc->ab", o4, o4)
+    s5 = torch.einsum("...arbc->...ab", o4)
+    s6 = torch.einsum("...arbc,r->...ab", o4, torch.arange(rb, dtype=F32,
+                                                            device=dev))
+    s7 = torch.einsum("...arbc,c->...ab", o4, torch.arange(cb, dtype=F32,
+                                                            device=dev))
+    sumsq = torch.einsum("...arbc,...arbc->...ab", o4, o4)
     return s5, s6, s7, sumsq
 
 
@@ -112,17 +117,28 @@ def abft_matmul_detect_ref(d: torch.Tensor, w: torch.Tensor, c5, c6, c7,
     per-chunk s5/s6/s7/sumsq at chunk-local index weights, then the CoC-D
     compare against c5/c6/c7 with tau5 = tau_a*sqrt(sumsq) +
     tau_b*absdot + 1e-30 (the weighted invariants' taus times rb-1 and
-    cb-1). NaN/Inf on either side flags the chunk with score inf."""
+    cb-1). NaN/Inf on either side flags the chunk with score inf. With a
+    leading group axis on D, W and the checksums, each group against its
+    own (the grouped kernel's plain version)."""
     acc = d.to(F32) @ w.to(F32)
-    s5, s6, s7, sumsq = chunk_sums_ref(acc, rb, cb)
+    flag, score = _compare(c5, c6, c7, absdot, chunk_sums_ref(acc, rb, cb),
+                           rb, cb, tau_a, tau_b, weighted)
+    return acc.to(d.dtype), flag, score
+
+
+def _compare(c5, c6, c7, absdot, sums, rb: int, cb: int, tau_a: float,
+             tau_b: float, weighted: bool):
+    """The CoC-D compare of abft_matmul_detect, elementwise over chunks
+    (any leading axes): (flag int32, score float32)."""
+    s5, s6, s7, sumsq = sums
     tau5 = (tau_a * torch.sqrt(torch.clamp(sumsq, min=0.0))
             + tau_b * absdot.to(F32) + 1e-30)
     pairs = [(c5, s5, tau5)]
     if weighted:
         pairs += [(c6, s6, tau5 * float(max(rb - 1, 1))),
                   (c7, s7, tau5 * float(max(cb - 1, 1)))]
-    flag = torch.zeros(s5.shape, dtype=torch.bool, device=d.device)
-    score = torch.zeros(s5.shape, dtype=F32, device=d.device)
+    flag = torch.zeros(s5.shape, dtype=torch.bool, device=s5.device)
+    score = torch.zeros(s5.shape, dtype=F32, device=s5.device)
     for c, s, t in pairs:
         c = c.to(F32)
         bad = ~(torch.isfinite(c) & torch.isfinite(s))
@@ -130,4 +146,4 @@ def abft_matmul_detect_ref(d: torch.Tensor, w: torch.Tensor, c5, c6, c7,
         flag |= bad | (diff > t)
         score = torch.maximum(score, torch.where(
             bad, torch.full_like(score, math.inf), diff / t))
-    return acc.to(d.dtype), flag.to(torch.int32), score
+    return flag.to(torch.int32), score

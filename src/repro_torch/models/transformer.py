@@ -1,6 +1,6 @@
 """Decoder-LM assembler (twin of repro.models.transformer: attention,
-dense-FFN, Mamba-2 SSD and RG-LRU blocks, and multi-codebook token I/O):
-init, caches, the protected forward, the training forward (autograd
+dense-FFN, MoE, Mamba-2 SSD and RG-LRU blocks, and multi-codebook token
+I/O): init, caches, the protected forward, the training forward (autograd
 through the protected route), prefill and decode, and the ProtectedModel
 apply_fns.
 
@@ -10,9 +10,12 @@ a Python loop over repeats that indexes `t[r]` (a view). The report merges
 every repeat's carry into one "stages" section, as the scan carry does,
 and each repeat's stacked plan entries are swapped for the view carrying
 that repeat's checksum slice (`_stage_overrides`), so serving pays no
-per-call weight encode. An ssm or rec block's cache is its recurrent
-state, which each step replaces whole; attention writes one row of its KV
-buffer. Blocks of kind moe are not ported yet (ROADMAP item 1.7).
+per-call weight encode (a stage's expert stacks excepted: the plan
+fingerprints them only, and each call encodes its experts from the
+weight, as in the JAX package). An ssm or rec block's cache is its
+recurrent state, which each step replaces whole; attention writes one row
+of its KV buffer. A moe block has no cache; its load-balancing loss is
+summed over the blocks into the forward's `aux`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..core import (ModelReport, ProtectConfig, WeightChecksums,
 from ..layers.attention import apply_attention, init_attention, init_cache
 from ..layers.embedding import embed, init_embedding, logits_head
 from ..layers.ffn import apply_ffn, init_ffn
+from ..layers.moe import apply_moe, init_moe
 from ..layers.norms import rms_norm, softcap
 from ..layers.rglru import apply_rglru, init_rglru, init_rglru_state
 from ..layers.ssm import apply_ssm, init_ssm, init_ssm_state
@@ -45,11 +49,6 @@ def _dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _unported(kind: str):
-    return NotImplementedError(
-        f"{kind!r} blocks are not ported yet (ROADMAP item 1.7)")
-
-
 def abft_config(cfg) -> Optional[ProtectConfig]:
     if not cfg.abft:
         return None
@@ -62,6 +61,10 @@ def _stack_trees(trees):
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if len(trees) == 1:
+        # one repeat: a view with the repeats axis, not a second copy of
+        # the stage (an expert stack is tens of GB)
+        return first.unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -84,7 +87,7 @@ def _init_block(kind: str, gen, cfg, device) -> Dict:
     elif kind == "rec":
         p["rec"] = init_rglru(gen, cfg, dt, device)
     elif kind == "moe":
-        raise _unported(kind)
+        p["moe"] = init_moe(gen, cfg, dt, device)
     else:
         raise ValueError(kind)
     return p
@@ -201,6 +204,7 @@ def init_caches(cfg, batch: int, max_len: int,
 def _apply_block(kind: str, bp: Dict, x, cfg, abft, positions,
                  cache=None, cache_pos=None):
     h = rms_norm(x, bp["norm"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=F32, device=x.device)
     new_cache = cache
     if kind in ATTN_KINDS:
         with path_scope("attn"):
@@ -219,31 +223,34 @@ def _apply_block(kind: str, bp: Dict, x, cfg, abft, positions,
             for k, t in new.items():
                 cache[k].copy_(t)
     elif kind == "moe":
-        raise _unported(kind)
+        with path_scope("moe"):
+            y, rep, aux = apply_moe(bp["moe"], h, cfg, abft)
     else:
         raise ValueError(kind)
     if cfg.use_post_norm:
         y = rms_norm(y, bp["post_norm"], cfg.norm_eps)
     # blocks may return per-op ModelReports (ffn); the stage carry takes
     # the scalar view (DetectEvidence in the deferred detect pass)
-    return x + y.to(x.dtype), as_fault_report(rep), new_cache
+    return x + y.to(x.dtype), as_fault_report(rep), new_cache, aux
 
 
 def _apply_blocks(pattern, blocks, x, cfg, abft, positions, caches=None,
                   cache_pos=None):
     rep = clean_report(ambient_mode())
+    aux = torch.zeros((), dtype=F32, device=x.device)
     new_caches = {} if caches is not None else None
     for i, kind in enumerate(pattern):
         name = f"b{i}_{kind}"
         c = caches.get(name) if caches is not None else None
         c = c if c else None  # {} -> None (stateless block)
         with path_scope(name):
-            x, r, nc = _apply_block(kind, blocks[name], x, cfg, abft,
-                                    positions, c, cache_pos)
+            x, r, nc, a = _apply_block(kind, blocks[name], x, cfg, abft,
+                                       positions, c, cache_pos)
         rep = merge_verdicts(rep, r)
+        aux = aux + a
         if caches is not None:
             new_caches[name] = nc if nc is not None else {}
-    return x, rep, new_caches
+    return x, rep, new_caches, aux
 
 
 def _own_caches(caches, cfg):
@@ -297,8 +304,9 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
              positions=None):
     """Shared trunk. tokens: (B, S), or (B, S, K) for multi-codebook
     archs (logits (B, S, K, V)). Returns (logits, sectioned
-    ModelReport, new_caches); the JAX package's auxiliary loss belongs to
-    the moe blocks, which are not ported. Report keys: "prefix" /
+    ModelReport, aux, new_caches); aux is the moe blocks' load-balancing
+    loss summed through the prefix, the stages and the remainder (0
+    without moe blocks). Report keys: "prefix" /
     "stages" (every repeat merged into one carry) / "rem", plus the LM
     head under its plan path ("embed/head" or "embed/table"), so the
     deferred corrective rerun trusts the head's carried flag while stage
@@ -320,12 +328,14 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
         caches = _own_caches(caches, cfg)
 
     sections: Dict[str, Any] = {}
+    aux = torch.zeros((), dtype=F32, device=x.device)
     if cfg.prefix_pattern:
         pc = caches.get("prefix") if caches is not None else None
         with path_scope("prefix"):
-            x, sections["prefix"], _ = _apply_blocks(
+            x, sections["prefix"], _, a = _apply_blocks(
                 cfg.prefix_pattern, params["prefix"], x, cfg, abft,
                 positions, pc, cache_pos)
+        aux = aux + a
 
     if reps:
         stage_wck = _stage_wck_xs()
@@ -336,16 +346,17 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
             sc = None if caches is None else \
                 tree_map(lambda t: t[r_i], caches["stages"])
             with path_scope("stages"), _stage_overrides(wcks):
-                x, r, _ = _apply_blocks(pattern, sp, x, cfg, abft,
-                                        positions, sc, cache_pos)
-            srep = merge_verdicts(srep, r)
+                x, r, _, a = _apply_blocks(pattern, sp, x, cfg, abft,
+                                           positions, sc, cache_pos)
+            srep, aux = merge_verdicts(srep, r), aux + a
         sections["stages"] = srep
 
     if rem:
         rc = caches.get("rem") if caches is not None else None
         with path_scope("rem"):
-            x, sections["rem"], _ = _apply_blocks(
+            x, sections["rem"], _, a = _apply_blocks(
                 rem, params["rem"], x, cfg, abft, positions, rc, cache_pos)
+        aux = aux + a
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits, r = logits_head(params["embed"], x, cfg, abft)
@@ -353,7 +364,7 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     sections[head_key] = as_fault_report(r)
     if cfg.logit_softcap:
         logits = softcap(logits, cfg.logit_softcap)
-    return logits, ModelReport(sections), caches
+    return logits, ModelReport(sections), aux, caches
 
 
 def _positions(position, device):
@@ -372,8 +383,8 @@ def prefill(params, tokens, cfg, max_len: int):
     max_len."""
     with torch.no_grad(), fp32_ieee():
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-        logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
-                                          cache_pos=0)
+        logits, rep, _, caches = _forward(params, tokens, cfg,
+                                          caches=caches, cache_pos=0)
     return logits[:, -1:], as_fault_report(rep), caches
 
 
@@ -384,8 +395,9 @@ def decode_step(params, tokens, caches, position, cfg):
     caches)."""
     with torch.no_grad(), fp32_ieee():
         positions, cp = _positions(position, tokens.device)
-        logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
-                                          cache_pos=cp, positions=positions)
+        logits, rep, _, caches = _forward(params, tokens, cfg,
+                                          caches=caches, cache_pos=cp,
+                                          positions=positions)
     return logits, as_fault_report(rep), caches
 
 
@@ -395,13 +407,12 @@ def forward_train(params, tokens, cfg):
     takes the gradients). The report keeps the scalar FaultReport
     contract (step runners and the microbatch loop merge it); use
     `train_apply` + core.ProtectedModel for the sectioned / deferred
-    workflow. aux is the JAX package's MoE
-    load-balancing loss, 0 here (no moe blocks are ported). `cfg.remat`
-    has no effect: an eager backward keeps the forward's activations."""
+    workflow. aux is the moe blocks' load-balancing loss (0 without
+    them). `cfg.remat` has no effect: an eager backward keeps the
+    forward's activations."""
     with fp32_ieee():
-        logits, rep, _ = _forward(params, tokens, cfg)
-    return (logits, as_fault_report(rep),
-            torch.zeros((), dtype=F32, device=logits.device))
+        logits, rep, aux, _ = _forward(params, tokens, cfg)
+    return logits, as_fault_report(rep), aux
 
 
 # --------------------------------------------------------------------------
@@ -418,9 +429,8 @@ def train_apply(cfg):
     The deferred mode runs the whole forward detect-only and reruns it
     with full correction only when something flagged (one host read)."""
     def apply_fn(params, tokens):
-        logits, rep, _ = _forward(params, tokens, cfg)
-        return (logits, torch.zeros((), dtype=F32,
-                                    device=logits.device)), rep
+        logits, rep, aux, _ = _forward(params, tokens, cfg)
+        return (logits, aux), rep
     return apply_fn
 
 
@@ -431,8 +441,8 @@ def prefill_apply(cfg, max_len: int, last: Optional[int] = None):
     (default: the last column)."""
     def apply_fn(params, tokens):
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-        logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
-                                          cache_pos=0)
+        logits, rep, _, caches = _forward(params, tokens, cfg,
+                                          caches=caches, cache_pos=0)
         i = tokens.shape[1] - 1 if last is None else last
         return (logits[:, i:i + 1], caches), rep
     return apply_fn
@@ -445,8 +455,8 @@ def prefill_apply_at(cfg, max_len: int):
     order by later decode writes before any query can attend them."""
     def apply_fn(params, tokens, last):
         caches = init_caches(cfg, tokens.shape[0], max_len, tokens.device)
-        logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
-                                          cache_pos=0)
+        logits, rep, _, caches = _forward(params, tokens, cfg,
+                                          caches=caches, cache_pos=0)
         li = int(last)
         return (logits[:, li:li + 1], caches), rep
     return apply_fn
@@ -457,8 +467,9 @@ def decode_apply(cfg):
     (params, tokens, caches, position), position as in decode_step."""
     def apply_fn(params, tokens, caches, position):
         positions, cp = _positions(position, tokens.device)
-        logits, rep, caches = _forward(params, tokens, cfg, caches=caches,
-                                          cache_pos=cp, positions=positions)
+        logits, rep, _, caches = _forward(params, tokens, cfg,
+                                          caches=caches, cache_pos=cp,
+                                          positions=positions)
         return (logits, caches), rep
     return apply_fn
 

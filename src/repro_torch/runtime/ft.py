@@ -19,7 +19,10 @@ divergence climbs audit -> in-place repair -> restore ->
 WeightDivergenceError.
 
 The audit re-encodes each entry's checksums on the device the weights lie
-on and reads one pair of numbers per checksum back. The repair rung runs
+on and reads one pair of numbers per checksum back; a grouped (MoE
+expert) entry's (E, K, M) stack re-encodes per expert, as a stage's
+stack does per repeat, and a stage-stacked expert leaf, which the plan
+only fingerprints, is checked by its fingerprint. The repair rung runs
 in float64 on that device too (core.weight_repair with
 dtype=torch.float64), so a 724 MB model is never copied to the host; only
 the flagged entries are touched.
@@ -40,6 +43,7 @@ from ..core import (FaultReport, apply_w_view, apply_w_view_inv,
                     weight_checksums_matmul, weight_leaf)
 from ..core import checksums as C
 from ..core import weight_repair as WR
+from ..core.plan import _fingerprint_of
 
 log = logging.getLogger("repro_torch.ft")
 F32 = torch.float32
@@ -124,7 +128,7 @@ def audit_weights_against_plan(params, plan, rtol: float = 1e-5
         if e.wck is None:
             if e.w_sum is None:
                 continue           # policy-only entry: nothing persisted
-            got = float(torch.sum(w.to(F32)))
+            got = _fingerprint_of(w)[0]
             # `is None`, not falsy: a recorded w_asum of 0.0 (all-zero
             # leaf) is a legitimate noise scale, not a missing one
             tol = rtol * ((abs(e.w_sum) if e.w_asum is None
@@ -133,15 +137,13 @@ def audit_weights_against_plan(params, plan, rtol: float = 1e-5
                 bad.append(f"{name}: weight-sum fingerprint diverged "
                            f"({got:.6g} vs plan {e.w_sum:.6g})")
             continue
-        if e.op.kind == "grouped_matmul":
-            raise NotImplementedError(
-                f"audit_weights_against_plan: {name!r} is a grouped_matmul "
-                "entry, which is not ported yet (ROADMAP item 1.11)")
-        if e.op.kind == "matmul":
-            # stage entries re-encode through the same stacked helper
-            # build_plan used, so the recipes cannot drift
+        if e.op.kind in ("matmul", "grouped_matmul"):
+            # stage and per-expert grouped entries re-encode through the
+            # same stacked helper build_plan used, so the recipes cannot
+            # drift
+            stacked = e.stack or e.op.kind == "grouped_matmul"
             fresh = (stacked_weight_checksums_matmul(w, e.wck.col_chunk)
-                     if e.stack
+                     if stacked
                      else weight_checksums_matmul(w, e.wck.col_chunk))
             pairs = ((e.wck.cw1, fresh.cw1), (e.wck.cw2, fresh.cw2))
         else:
@@ -227,14 +229,14 @@ def repair_weights_against_plan(params, plan, bad: List[str],
             fix = (WR.repair_stacked_matmul_weight if e.stack
                    else WR.repair_matmul_weight)
             fixed, verdict = fix(w, e.wlc, tol, dtype=torch.float64)
+        elif e.op.kind == "grouped_matmul":
+            # per-expert stacks repair like stage stacks: the locator
+            # sums carry one (K, M) block grid per leading-axis slice
+            fixed, verdict = WR.repair_stacked_matmul_weight(
+                w, e.wlc, tol, dtype=torch.float64)
         elif e.op.kind == "conv":
             fixed, verdict = WR.repair_conv_weight(w, e.wlc, tol,
                                                    dtype=torch.float64)
-        elif e.op.kind == "grouped_matmul":
-            raise NotImplementedError(
-                f"repair_weights_against_plan: {name!r} is a "
-                "grouped_matmul entry, which is not ported yet (ROADMAP "
-                "item 1.11)")
         else:
             return params, None
         if int(verdict) != WR.REPAIRED:

@@ -22,6 +22,14 @@ takes the kernel route's partials kernel (abft_matmul) where the detect
 pass took abft_matmul_detect; both round O identically, so clean slots
 differ by exactly 0.
 
+Per-request parity caveat (the JAX session's): batch rows are
+independent through attention (per-slot positions), dense FFN and the
+recurrent blocks, so clean-traffic tokens match the unbatched forward
+(`greedy_reference`); moe blocks couple a batch's rows through expert
+capacity (one request's assignments can displace another's) and void that
+guarantee. Their prompts are bucketed like any non-recurrent model's, so
+padded prefill rows take part in the routing, as in the JAX session.
+
 Plan-trusted weight audits run on the step cadence (`audit_every`):
 divergence from the plan's persisted checksums climbs runtime.ft's ladder
 - in-place repair from the plan's locator sums, then `restore_fn`, then

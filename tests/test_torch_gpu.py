@@ -10,6 +10,7 @@ Tolerances as in test_torch_kernels.py: rtol=1e-5, atol=1e-4*sqrt(K) for
 O, 1e-3*sqrt(K) for the epilogue partials, 1e-5 of the output's scale for
 checksum_reduce's partials and 1e-4 for the finished detection sums
 (fp32 reassociation only)."""
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -853,6 +854,7 @@ def test_musicgen_serving_on_card(cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large-smoke",
+                                  "kimi-k2-1t-a32b-smoke",
                                   "mamba2-1.3b-smoke",
                                   "recurrentgemma-2b-smoke"])
 def test_init_draws_on_a_card_generator(cuda_device, arch):
@@ -1105,3 +1107,246 @@ def test_train_step_on_card_bitwise_unprotected(cuda_device, dtype):
     assert [n for n, _ in fa] == [n for n, _ in fb]
     for (n, x), (_, y) in zip(fa, fb):
         assert x.device.type == "cuda" and torch.equal(x, y), n
+
+
+# --------------------------------------------------------------------------
+# the group axis: G products of one shape in one launch (MoE experts)
+# --------------------------------------------------------------------------
+
+# (G, n, k, m, rb, cb, transposed): a decode step's one row per expert, a
+# prefill's few, row chunks under the block tile, K not a multiple of the
+# stage, W read transposed per group
+GROUPED_CASES = [(8, 1, 256, 128, 1, 64, False), (6, 3, 200, 96, 3, 32, False),
+                 (4, 16, 520, 200, 8, 40, False), (5, 2, 96, 64, 2, 64, True),
+                 (3, 40, 72, 96, 8, 48, False)]
+
+
+def _grouped_operands(dev, dtype, g, n, k, m, transposed):
+    d = torch.as_tensor(normal(g * n, (g, n, k))).to(dev, dtype)
+    if transposed:
+        w = torch.as_tensor(normal(m, (g, m, k)) * k ** -0.5).to(
+            dev, dtype).transpose(1, 2)
+    else:
+        # a view into a stacked leaf, as a stage's expert slice is
+        w = torch.as_tensor(normal(m, (2, g, k, m)) * k ** -0.5).to(
+            dev, dtype)[1]
+    return d, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,n,k,m,rb,cb,transposed", GROUPED_CASES)
+def test_grouped_detect_kernel_on_card(cuda_device, g, n, k, m, rb, cb,
+                                       transposed, dtype):
+    """One launch for all G groups: flags equal to the plain version's and
+    clear on exact checksums; +1e4 at one element of one group flags
+    exactly that group's chunk; O bitwise equal to G launches of the 2-D
+    kernel (each group tiled as its own product) and to the grouped
+    partials kernel, within rounding of the plain version."""
+    from repro_torch.core import thresholds as TTH
+    d, w = _grouped_operands(cuda_device, dtype, g, n, k, m, transposed)
+    cs = [torch.stack(x) for x in zip(*(_chunk_checksums(d[i], w[i], rb, cb)
+                                        for i in range(g)))]
+    tau_a, tau_b = TTH.tau_scalar_coeffs(k, dtype, 32.0)
+    before = (TAM.GROUPED_DETECT_LAUNCHES, TAM.DETECT_LAUNCHES)
+    o, flag, score = TAM.abft_matmul_detect(d, w, *cs, rb, cb, tau_a, tau_b)
+    torch.cuda.synchronize()
+    assert (TAM.GROUPED_DETECT_LAUNCHES, TAM.DETECT_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    o_r, flag_r, score_r = tref.abft_matmul_detect_ref(
+        d, w, *cs, rb, cb, tau_a, tau_b)
+    assert flag.shape == (g, n // rb, m // cb)
+    assert torch.equal(flag, flag_r) and int(flag.sum()) == 0
+    assert_close(score, score_r, 1e-4, 1e-2, "score")
+    assert_close(o.float(), o_r.float(), 1e-2 if dtype != torch.float32
+                 else 1e-5, 1e-4 * k ** 0.5, "O")
+    singles = torch.stack([TAM.abft_matmul_detect(
+        d[i], w[i], *(c[i] for c in cs), rb, cb, tau_a, tau_b)[0]
+        for i in range(g)])
+    assert torch.equal(o, singles), "a group's O differs from its own launch"
+    o_p, parts = TAM.abft_matmul(d, w, 8 if n >= 8 else 1, 8)
+    assert torch.equal(o, o_p)
+    _, parts_r = tref.abft_matmul_ref(d, w, 8 if n >= 8 else 1, 8)
+    for a, b, name in zip(parts[:3], parts_r[:3],
+                          ("colsum", "rowsum", "sumsq")):
+        assert a.shape == b.shape, name
+        assert_close(a, b, 1e-2 if dtype != torch.float32 else 1e-5,
+                     1e-3 * k ** 0.5, name)
+    hit_g, r, c = g - 2, n - 1, m - 5
+    p = d[hit_g].float() @ w[hit_g].float()
+    p[r, c] += 1e4
+    bad = [x.clone() for x in cs]
+    for j, x in enumerate(tref.chunk_sums_ref(p, rb, cb)[:3]):
+        bad[j][hit_g] = x
+    _, flag_t, _ = TAM.abft_matmul_detect(d, w, *bad, rb, cb, tau_a, tau_b)
+    want = torch.zeros_like(flag_t)
+    want[hit_g, r // rb, c // cb] = 1
+    assert torch.equal(flag_t, want)
+
+
+def test_grouped_kernels_refuse_bad_groups(cuda_device):
+    d = torch.zeros((4, 8, 64), device=cuda_device)
+    w = torch.zeros((3, 64, 32), device=cuda_device)
+    with pytest.raises(ValueError):
+        TAM.abft_matmul(d, w, 8, 8)
+    with pytest.raises(ValueError):
+        TAM.abft_matmul(d, w[0], 8, 8)
+    with pytest.raises(NotImplementedError):
+        TAM.abft_matmul(d, w[:1].expand(4, 64, 32).half(), 8, 8)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_protected_grouped_matmul_on_card(cuda_device, fused):
+    """protected_grouped_matmul in bf16 on the card: the clean path gives
+    zero flags in both modes; with use_fused_kernel one group-axis launch
+    per call (detect_only: the detect kernel; per_layer: the partials
+    kernel), O bitwise equal between the two; a corrupted expert weight
+    element, against the clean weight's checksums, is detected, as the
+    same call on the CPU detects it (which rung then answers may differ
+    between the two, ROADMAP 3.4)."""
+    from repro_torch.core import protected as TP
+    g, n, k, m = 8, 2, 256, 192
+    d = torch.as_tensor(normal(3, (g, n, k))).to(cuda_device, torch.bfloat16)
+    w = torch.as_tensor(normal(4, (g, k, m)) * k ** -0.5).to(
+        cuda_device, torch.bfloat16)
+    cfg = tcore.DEFAULT_CONFIG.replace(row_chunk=64, col_chunk=64,
+                                       use_fused_kernel=fused)
+    before = (TAM.GROUPED_DETECT_LAUNCHES, TAM.GROUPED_LAUNCHES)
+    o_d, ev = TP.protected_grouped_matmul(d, w, cfg=cfg, mode="detect_only")
+    o_c, rep = TP.protected_grouped_matmul(d, w, cfg=cfg)
+    assert int(ev.flag) == 0 and tuple(int(x) for x in rep) == (0, 0, 0)
+    assert (TAM.GROUPED_DETECT_LAUNCHES - before[0],
+            TAM.GROUPED_LAUNCHES - before[1]) == ((1, 1) if fused else (0, 0))
+    assert torch.equal(o_d, o_c)
+    ref = (d.float() @ w.float()).to(torch.bfloat16)
+    assert_close(o_c.float(), ref.float(), 1e-2, 1e-2, "O")
+    wck = tcore.stacked_weight_checksums_matmul(w, 64)
+    bad = w.clone()
+    bad[5, 17, 40] += 30.0
+    _, rep_b = TP.protected_grouped_matmul(d, bad, wck=wck, cfg=cfg)
+    cpu = lambda t: t.cpu()
+    _, rep_h = TP.protected_grouped_matmul(
+        cpu(d), cpu(bad), wck=tcore.WeightChecksums(cpu(wck.cw1),
+                                                    cpu(wck.cw2), 64),
+        cfg=cfg)
+    assert int(rep_b.detected) == int(rep_h.detected) == 1
+
+
+def test_moe_serving_on_card(cuda_device):
+    """The reduced Kimi-K2 in bf16 served on the card: zero clean flags;
+    every plain-matmul site of every deferred forward on
+    abft_matmul_detect (24 per forward: the prefix's 7, each of 2 repeats'
+    attention, router and shared expert, the head), the expert GEMMs on
+    the plain grouped route, one host read a forward; per_layer reads once
+    per site call (24 + 3 grouped sites x 2 repeats = 30) and gives the
+    same tokens."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import workflow as TW
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("kimi-k2-1t-a32b-smoke").replace(dtype="bfloat16")
+    params = TM.init_params(cfg, device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=4, seq=32, device=cuda_device))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in (5, 9, 13, 7, 3)]
+    tokens = {}
+    for mode in ("deferred", "per_layer"):
+        TAM.LAUNCHES = TAM.DETECT_LAUNCHES = TW.HOST_READS = 0
+        sess = ProtectedSession(params, cfg, plan, slots=4, max_len=32,
+                                correction=mode, device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=6) for p in prompts]
+        report = sess.run()
+        c = report["counters"]
+        forwards = c["prefills"] + c["decode_steps"]
+        assert c["faults_detected"] == 0 and report["completed"] == 5
+        if mode == "deferred":
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (24 * forwards, 0)
+            assert TW.HOST_READS == forwards
+        else:
+            assert (TAM.DETECT_LAUNCHES, TAM.LAUNCHES) == (0, 24 * forwards)
+            assert TW.HOST_READS == 30 * forwards
+        tokens[mode] = [sess.tokens_for(r) for r in rids]
+    assert tokens["deferred"] == tokens["per_layer"]
+
+
+# --------------------------------------------------------------------------
+# a corrected bf16 output keeps the site's own rounding
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n,k,m", [(107, 2048, 2048), (8, 2048, 8192)])
+def test_corrected_bf16_site_is_bitwise_clean_on_card(cuda_device, fused, n,
+                                                      k, m):
+    """+1e3 at one element of a bf16 site's output (the serving drills'
+    seam: protect_op with the injected O), at 16 places, in chunks whose
+    rounding noise can shift CoC's weighted ratios by an index (values up
+    to ~20): the ladder corrects it and the corrected output equals the
+    route's clean output bitwise, so the KV cache a corrected prefill
+    writes, and every later token, are the clean run's."""
+    from repro_torch import fp32_ieee
+    from repro_torch.core import plan as TPL
+    bf16 = torch.bfloat16
+    d = torch.as_tensor(normal(5, (n, k)) * 4.0).to(cuda_device, bf16)
+    w = torch.as_tensor(normal(6, (k, m)) * k ** -0.5).to(cuda_device, bf16)
+    cfg = tcore.DEFAULT_CONFIG.replace(use_fused_kernel=fused)
+    rng = np.random.default_rng(1)
+    with torch.no_grad(), fp32_ieee():
+        clean = TPL._site_product(d, w, cfg)
+        for r, c in zip(rng.integers(0, n, 16), rng.integers(0, m, 16)):
+            bad = clean.clone()
+            bad[r, c] += 1e3
+            out, rep = TPL.protect_op(TPL.OpSpec("matmul"), (d, w), cfg=cfg,
+                                      o=bad)
+            assert (int(rep.detected), int(rep.residual)) == (1, 0)
+            assert torch.equal(out, clean), (
+                f"({r}, {c}) corrected by rung {int(rep.corrected_by)}: "
+                f"{int((out != clean).sum())} elements differ from the "
+                "clean output")
+
+
+def test_corrected_prefill_keeps_clean_tokens_on_card(cuda_device):
+    """MusicGen-large at full width and 24 of its 48 layers in bf16 (random
+    params drawn on the card from seed 0), 8 requests of chip_smoke.py's
+    phase-14 traffic served for 8 tokens, deferred, the kernels pinned:
+    +1e3 at one element of repeat 12's attention wk in each prefill is
+    detected and corrected (residual 0), and every served token equals
+    the clean run's. A ladder that recomputed the located element in
+    another summation order than the site's kernel moved a token here."""
+    import repro_torch.configs as TCF
+    from repro_torch.core import injection
+    from repro_torch.models import transformer as TM
+    from repro_torch.serving import ProtectedSession
+    cfg = TCF.get("musicgen-large").replace(num_layers=24)
+    params = TM.init_params(
+        cfg, generator=torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    plan = tcore.force_fused_matmul(tcore.build_plan(
+        params, cfg, batch=8, seq=256, device=cuda_device))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, (int(s), cfg.num_codebooks))
+               for s in rng.integers(16, 129, 16)][:8]
+    reps, calls = cfg.stages()[1], [0]
+
+    def prefill_hook(o):
+        if o.shape[0] == 1 and o.shape[1] > 1:
+            calls[0] += 1
+            if (calls[0] - 1) % reps == reps // 2:
+                o = o.clone()
+                o[0, 5, 17] += 1e3
+        return o
+
+    def serve(hook=None):
+        sess = ProtectedSession(params, cfg, plan, slots=8, max_len=256,
+                                device=cuda_device)
+        rids = [sess.submit(p, max_new_tokens=8) for p in prompts]
+        with (injection.fault_scope("stages/b0_attn_full/attn/wk", hook)
+              if hook else contextlib.nullcontext()):
+            report = sess.run()
+        return [sess.tokens_for(r) for r in rids], report
+
+    clean, _ = serve()
+    got, report = serve(prefill_hook)
+    recs = report["requests"]
+    assert [(r["prefill_detected"], r["corrections_applied"], r["residuals"])
+            for r in recs] == [(1, 1, 0)] * 8
+    assert got == clean

@@ -344,3 +344,36 @@ def test_bf16_fix_restores_the_located_element():
     assert verdict(rep) == verdict(rep_j) == (1, TT.COC, 0)
     assert gap_j > 0.1
     assert torch.equal(fixed, clean)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_bf16_correction_keeps_the_site_route(fused):
+    """+1e3 at one element of a bf16 output whose chunk (128 x 1024 of
+    values up to ~20) carries enough rounding noise to shift CoC's
+    weighted ratios by an index at some places: there the fix lands on a
+    clean element and passes verification within that noise, and the
+    located element's recompute then left the fault standing with a
+    residual of 0 (ROADMAP 3.9). At every place the corrected output is
+    the route's clean output bitwise (here the CPU's plain versions;
+    tests/test_torch_gpu.py holds the card's routes), with residual 0;
+    the mislocated fixes are refused for the route's recompute."""
+    from repro_torch.core import plan as TPL
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.standard_normal((128, 2048)) * 4.0,
+                        dtype=torch.float32).to(torch.bfloat16)
+    w = torch.as_tensor(rng.standard_normal((2048, 2048)) * 2048 ** -0.5,
+                        dtype=torch.float32).to(torch.bfloat16)
+    cfg = tcore.DEFAULT_CONFIG.replace(use_fused_kernel=fused)
+    clean = TPL._site_product(d, w, cfg)
+    # CoC mislocates the first three, the last two it locates
+    rungs = []
+    for r, c in ((97, 815), (5, 1913), (42, 680), (3, 7), (64, 1500)):
+        bad = clean.clone()
+        bad[r, c] += 1e3
+        out, rep = TPL.protect_op(TPL.OpSpec("matmul"), (d, w), cfg=cfg,
+                                  o=bad)
+        assert (int(rep.detected), int(rep.residual)) == (1, 0)
+        assert torch.equal(out, clean), (r, c, int(rep.corrected_by))
+        rungs.append(int(rep.corrected_by))
+    assert rungs[:3] == [TT.RECOMPUTE] * 3
+    assert TT.RECOMPUTE not in rungs[3:]

@@ -279,10 +279,16 @@ def test_host_reads_per_mode(model, plan_t):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    """moe blocks (kimi-k2) still raise, naming their ROADMAP item;
-    musicgen's multi-codebook I/O is ported (tests/test_torch_musicgen.py
-    builds it)."""
-    with pytest.raises(NotImplementedError, match="1.7"):
-        TM.init_params(TCF.get("kimi-k2-1t-a32b-smoke"), device="cpu")
-    with pytest.raises(NotImplementedError, match="1.7"):
-        tcore.protection_spec(TCF.get("kimi-k2-1t-a32b-smoke"))
+    """moe blocks (kimi-k2) build and plan now (tests/test_torch_moe.py
+    holds them to the JAX package); what is left of them, training, raises
+    naming its ROADMAP item."""
+    from repro_torch.launch import steps as TST
+    from repro_torch.optim import OptConfig
+    cfg = TCF.get("kimi-k2-1t-a32b-smoke")
+    params = TM.init_params(cfg, device="cpu")
+    assert tuple(params["stages"]["b1_moe"]["moe"]["gate"].shape) == \
+        (2, 8, 64, 48)
+    kinds = [s.op.kind for s in tcore.protection_spec(cfg).sites]
+    assert kinds.count("grouped_matmul") == 3
+    with pytest.raises(NotImplementedError, match="1.12"):
+        TST.make_train_step(cfg, OptConfig())

@@ -4,8 +4,8 @@ weights: locator persistence, the block solver in torch float64 (the
 audit's rung) and float32 (the campaign's device path),
 `repair_weights_against_plan` on f32, bf16, int8 and stacked stage
 leaves, and the audit's satellites (twins of
-tests/test_weight_repair.py; the grouped expert stack is ROADMAP item
-1.11). Verdicts and repaired weights must equal JAX's; f32 and bf16
+tests/test_weight_repair.py, the grouped expert stack included).
+Verdicts and repaired weights must equal JAX's; f32 and bf16
 repairs are bitwise, int8 repairs exact."""
 import dataclasses
 import json
@@ -248,15 +248,21 @@ def test_stacked_entry_repairs_through_the_plan():
 
 
 def test_grouped_entries_name_their_item():
-    w = torch.as_tensor(normal(4, (8, 32)))
-    e = tcore.matmul_entry("moe/experts", w, TCFG)
-    e = dataclasses.replace(e, op=tcore.OpSpec("grouped_matmul"))
-    plan = tcore.ProtectionPlan(entries={"moe/experts": e})
-    params = {"moe": {"experts": {"w": w}}}
-    with pytest.raises(NotImplementedError, match="1.11"):
-        ft.audit_weights_against_plan(params, plan)
-    with pytest.raises(NotImplementedError, match="1.11"):
-        ft.repair_weights_against_plan(params, plan, ["moe/experts: x"])
+    """A grouped (E, K, M) expert stack's entry: the audit names it alone
+    when one expert's block is damaged, and the repair solves it in place,
+    bitwise, as the JAX package's does; the other experts' blocks are
+    untouched."""
+    w_np = normal(4, (3, 8, 32))
+    wj, wt = _both(w_np)
+    plan_j = jcore.ProtectionPlan(entries={
+        "experts": jcore.grouped_matmul_entry("experts", wj, JCFG)})
+    plan_t = tcore.ProtectionPlan(entries={
+        "experts": tcore.grouped_matmul_entry("experts", wt, TCFG)})
+    bad = w_np.copy()
+    bad[1, 5, 20] += 64.0
+    fixed_j, fixed_t = _repair_both(bad, plan_j, plan_t, "experts")
+    assert fixed_t is not None and torch.equal(fixed_t, wt)
+    np.testing.assert_array_equal(fixed_t.numpy(), np.asarray(fixed_j))
 
 
 # --------------------------------------------------------------------------
