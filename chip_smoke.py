@@ -160,19 +160,19 @@ Phases, each fatal on failure:
      after which every token equals the clean run's (the corrective rerun
      starts from the step's input state); init and build_plan seconds and
      peak device memory;
-  13. RecurrentGemma-2B at full width and its first 6 of 26 layers in
-     bf16 (two repeats of its pattern: 4 RG-LRU blocks, 2 sliding-window
-     attention blocks on one KV head, 6 gelu FFNs, the tied 256,000-token
+  13. RecurrentGemma-2B at full width and its first 3 of 26 layers in
+     bf16 (one repeat of its pattern: 2 RG-LRU blocks, a sliding-window
+     attention block on one KV head, 3 gelu FFNs, the tied 256,000-token
      head; random params drawn on the card from a seed, the table scaled
-     by 1/16), served and checked as phase 12 with 47 launches and reads
+     by 1/16), served and checked as phase 12 with 24 launches and reads
      per forward; the prefill drill at one repeat's attn_swa wk (the
      KV-cache write), the decode drill at one repeat's rec in_x (it feeds
      both the conv tail and h);
-  14. MusicGen-large at full width and 24 of its 48 layers in bf16
+  14. MusicGen-large at full width and 12 of its 48 layers in bf16
      (attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
      the untied 2048 x 8192 head; random params drawn on the card from a
      seed), served as phase 12 with prompts of (16-128, 4) tokens and
-     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 169
+     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 85
      launches and reads per forward, every
      codebook's served token teacher-forced within the bounds of phase
      12; the prefill drill at one repeat's attention wk, the decode drill
@@ -211,7 +211,23 @@ Phases, each fatal on failure:
      corrected routing is the clean run's) and the shared expert's down;
      then a prefill with the grouped entries pinned to the group-axis
      kernels in both modes (3 grouped launches, flags clear); peak memory
-     under 70 GiB.
+     under 70 GiB;
+  16. training through the ssm, rec and moe blocks at full width, bf16
+     params, remat on, warmup 1, lr 1e-3 (1e-4 for Kimi-K2), 6 steps
+     over three cycled batches (train_cell): Mamba2-1.3B at full depth
+     (48 layers, 1.45 G params) with AdamW, batch 8 x 256 in 2
+     microbatches; RecurrentGemma-2B at 6 of 26 layers the same;
+     Kimi-K2 at 2 of 61 layers with 64 of its 384 experts and Adafactor,
+     batch 4 x 128: every report clean, the loss falling, no kernel
+     launched; one step's new params bitwise its abft=False twin's; +1e4
+     drills in one step at one repeat's in_proj,
+     rec in_x, the fp32 router and the experts' gate, under remat:
+     detected, corrected with residual 0, counted by StepRunner, the loss
+     within rtol 1e-4 of the clean step's, the new params bitwise the
+     clean ones or their largest difference printed; remat on against off
+     bitwise (Mamba2-1.3B at 4 layers), peak memory of each; step ms, host
+     reads (the recompute's apart), peak memory under 70 GiB and a
+     profile of one step.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -328,10 +344,11 @@ RG_ROWS = (SLOTS, 97, 128)
 # whatever the recurrent state holds (as the reduced model does on the
 # CPU); scaled, the served tokens depend on the state
 RG_TABLE_SCALE = 1 / 16
-# depth of phase 13's RecurrentGemma-2B: two repeats of its pattern (rec,
-# ffn, rec, ffn, attn_swa, ffn) at full width (cut from 26 to make room
-# for phase 14); phase 3d keeps the full-depth counts
-RG_LAYERS = 6
+# depth of phase 13's RecurrentGemma-2B: one repeat of its pattern (rec,
+# ffn, rec, ffn, attn_swa, ffn) at full width (cut from 26 to two repeats
+# to make room for phase 14, then to one for phase 16); phase 3d keeps
+# the full-depth counts
+RG_LAYERS = 3
 # the multi-codebook slice: MusicGen-large at full width and depth, bf16,
 # served as phase 12 serves Mamba2-1.3B; its distinct GEMM shapes with
 # their launches per forward (48 layers of wq, wk, wv and wo on 32 heads
@@ -344,10 +361,10 @@ MUSICGEN_SITES = (("wq/wk/wv/wo", 2048, 2048, False, 192),
                   ("down", 8192, 2048, False, 48),
                   ("head", 2048, 8192, False, 1))
 MUSICGEN_ROWS = SERVE_ROWS
-# depth of phase 14's MusicGen-large: its first 24 layers at full width
-# (cut from 48 to keep the run near half the driver's limit); phase 3e
-# keeps the full-depth counts
-MUSICGEN_LAYERS = 24
+# depth of phase 14's MusicGen-large: its first 12 layers at full width
+# (cut from 48 to 24, then to 12 to make room for phase 16, keeping the
+# whole run near ten minutes); phase 3e keeps the full-depth counts
+MUSICGEN_LAYERS = 12
 # the MoE slice: Kimi-K2 at full width and 2 of its 61 layers (the dense
 # prefix layer, then one repeat of attention and a moe block of 384
 # experts, top-8, and a shared expert), bf16, served as phase 6 serves
@@ -377,6 +394,25 @@ KIMI_SITES = (("wq/wo", 7168, 7168, False, 4),
 MOE_SHAPES = (("gate/up", 7168, 2048, 2), ("down", 2048, 7168, 1))
 MOE_ROWS = (1, 2, 3)
 MOE_TIMED_ROWS = (1, 3)
+# phase 16: training through the ssm, rec and moe blocks, bf16 params,
+# remat on, warmup 1, lr TRAIN_LR, TRAIN16_STEPS steps over three cycled
+# batches. 16a Mamba2-1.3B at full width and depth, AdamW, batch
+# TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB microbatches (remat on and off held
+# bitwise at REMAT_CHECK_LAYERS layers); 16b RecurrentGemma-2B at full
+# width and RG_TRAIN_LAYERS layers, as 16a; 16c Kimi-K2 at full width,
+# MOE_LAYERS layers and MOE_TRAIN_EXPERTS of its 384 experts (params plus
+# gradients of all 384 come to 78 GB in bf16), Adafactor, batch
+# MOE_TRAIN_BATCH x MOE_TRAIN_SEQ in one microbatch
+TRAIN16_STEPS = 6
+REMAT_CHECK_LAYERS = 4
+RG_TRAIN_LAYERS = 6                    # two repeats of its pattern
+MOE_TRAIN_EXPERTS = 64
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 128
+# 16c's learning rate: at 1e-3 the first Adafactor steps (about sign(g)
+# for the unfactored 7168 x 64 fp32 router) move each router logit by ~6
+# at d 7168, the routing collapsed (aux 1.2 -> 17) and the loss rose
+MOE_TRAIN_LR = 1e-4
+TRAIN16_PEAK_GIB = 70.0
 
 
 def log(*a):
@@ -3305,7 +3341,7 @@ def run_mamba_serving(report) -> dict:
 
 def run_rg_serving(report) -> dict:
     """Phase 13: RecurrentGemma-2B at full width and its first RG_LAYERS
-    layers (two repeats of its pattern, a plan of its own): 23 sites a
+    layers (repeats of its pattern, a plan of its own): 23 sites a
     repeat (2 rec blocks of 5, one attn_swa of 4, 3 ffns of 3) and the
     tied head per forward; the prefill drill at one repeat's attn_swa wk
     (the KV-cache write), the decode drill at one repeat's rec in_x (it
@@ -4063,6 +4099,381 @@ def run_moe_serving(report) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 16: training through the ssm, rec and moe blocks at full width
+# --------------------------------------------------------------------------
+
+def profile_step(fn) -> dict:
+    """profile_forward's numbers for one call of fn (no warm-up), from the
+    card's activity alone, read off the trace's raw records: a 48-layer
+    train step leaves ~100,000 of them, which the profiler's event objects
+    take seconds to build (13 s for Mamba2-1.3B's step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by[e.name()][0] += 1
+            by[e.name()][1] += e.duration_ns() / 1e6
+    if not by:
+        fail("the trace of a train step recorded no device activity")
+    busy = sum(ms for _, ms in by.values())
+    top = sorted(by.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
+    return {"wall_ms": wall, "device_ms": busy,
+            "kernels": sum(n for n, _ in by.values()),
+            "idle_share": max(0.0, 1.0 - busy / wall),
+            "top": [{"name": k, "calls": n, "ms": ms} for k, (n, ms) in top]}
+
+
+def state_diff(a, b) -> tuple:
+    """(the leaves of two trees that differ, the largest |difference|)."""
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    diff, worst = [], 0.0
+    for (n, x), (_, y) in zip(tree_flatten_with_path(a),
+                              tree_flatten_with_path(b)):
+        if not (x.dtype == y.dtype and torch.equal(x, y)):
+            diff.append(n)
+            worst = max(worst, max_err(x, y))
+    return diff, worst
+
+
+@contextlib.contextmanager
+def recording_aux(log_):
+    """Append each forward's moe load-balancing loss, made by launch.steps'
+    forward_train in the scope, to log_ (the step's metrics do not carry
+    it)."""
+    from repro_torch.launch import steps as S
+    inner = S.M.forward_train
+
+    def forward_train(params, tokens, cfg):
+        logits, rep, aux = inner(params, tokens, cfg)
+        log_.append(float(aux.detach()))
+        return logits, rep, aux
+
+    S.M.forward_train = forward_train
+    try:
+        yield log_
+    finally:
+        S.M.forward_train = inner
+
+
+@contextlib.contextmanager
+def counting_ladders(log_):
+    """Append D's shape of each protect_matmul_output call in the scope
+    that carries a host flag of True (the grouped ladder's call for one
+    flagged expert) to log_."""
+    from repro_torch.core import protected as P
+    inner = P.protect_matmul_output
+
+    def counted(*a, **kw):
+        if kw.get("detected") is True:
+            log_.append(tuple(a[0].shape))
+        return inner(*a, **kw)
+
+    P.protect_matmul_output = counted
+    try:
+        yield log_
+    finally:
+        P.protect_matmul_output = inner
+
+
+def train_cell(key: str, cfg, opt, batch: int, seq: int, mb: int, drills,
+               remat_layers: int = 0) -> dict:
+    """Train `cfg` (its params drawn on the card from a seed) with `opt`,
+    batch x seq tokens in `mb` microbatches, remat on, warmup 1, for
+    TRAIN16_STEPS steps over three cycled batches: every report clean,
+    every loss finite and the last below the first, no kernel launched
+    (the plain route, as the JAX package's step), the last step profiled.
+    Then, from the state after step 2: the step's new params bitwise its
+    abft=False twin's; each drill (label, site, repeat): +1e4 at one
+    element of the site's output in that stage repeat in every forward of
+    one step, run by StepRunner inside plan_scope(mode="correct") -
+    detected, corrected
+    with residual 0, counted, no retry, the hook fired again in each
+    recompute, the loss within rtol 1e-4 of the clean step's, the new
+    params bitwise the clean ones or their largest difference printed (a
+    grouped site: the ladder runs for one expert per forward); remat on
+    against off at `remat_layers` layers (0: this depth), one step each,
+    bitwise, with each one's peak memory. Per step ms and host reads (the
+    recompute's apart), peak memory under TRAIN16_PEAK_GIB, the moe
+    load-balancing loss per step."""
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.core import injection as inj
+    from repro_torch.core import plan_scope, workflow
+    from repro_torch.core.plan import current_repeat
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    from repro_torch.runtime.ft import FTPolicy, StepRunner
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def init(c):
+        state = S.init_train_state(
+            torch.Generator(device=DEVICE).manual_seed(SEED), c, opt,
+            device=DEVICE)
+        torch.cuda.synchronize()
+        return state
+
+    t_cell = time.perf_counter()
+    state = init(cfg)
+    init_s = time.perf_counter() - t_cell
+    n_params = sum(p.numel() for _, p in
+                   tree_flatten_with_path(state["params"]))
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=batch)
+    batches = []
+    for i in range(3):
+        tk, lb = host_batch(dcfg, i)
+        batches.append({"tokens": tk.to(DEVICE), "labels": lb.to(DEVICE)})
+    make = lambda c: S.make_train_step(c, opt, microbatches=mb, warmup=1)
+    step = make(cfg)
+    _, reps, _ = cfg.stages()
+    log(f"  {cfg.name}: {cfg.num_layers} layers ({reps} stage repeats), "
+        f"{n_params / 1e9:.3f} G params bf16, {opt.kind} state fp32; batch "
+        f"{batch} x {seq} in {mb} microbatch(es), remat {cfg.remat}; init "
+        f"{init_s:.1f} s")
+    res = {"layers": cfg.num_layers, "params_g": n_params / 1e9,
+           "init_s": init_s, "optimizer": opt.kind,
+           "batch": [batch, seq, mb]}
+
+    losses, ms, reads, aux = [], [], [], []
+    mid, prof = None, None
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = 0
+    for i in range(TRAIN16_STEPS):
+        if i == 2:
+            mid = state
+        workflow.HOST_READS = workflow.RECOMPUTE_READS = 0
+        aux_i, out = [], []
+
+        def one():
+            with recording_aux(aux_i):
+                out.append(step(state, batches[i % 3]))
+
+        t0 = time.perf_counter()
+        if i == TRAIN16_STEPS - 1:
+            # the last step, traced; its wall is the profile's
+            prof = profile_step(one)
+        else:
+            one()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        (state, m), = out
+        del one, out
+        reads.append((workflow.HOST_READS, workflow.RECOMPUTE_READS))
+        aux.append(sum(aux_i) / len(aux_i))
+        loss = float(m["loss"])
+        v = tuple(int(x) for x in m["report"])
+        losses.append(loss)
+        if v != (0, 0, 0) or not math.isfinite(loss):
+            fail(f"{key}: train step {i}: report {v}, loss {loss}")
+    launches = AM.LAUNCHES + AM.DETECT_LAUNCHES
+    log("  losses " + " ".join(f"{x:.4f}" for x in losses)
+        + ("; aux " + " ".join(f"{x:.4f}" for x in aux)
+           if cfg.num_experts else ""))
+    if not losses[-1] < losses[0]:
+        fail(f"{key}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if launches:
+        fail(f"{key}: {launches} kernel launches in the train steps, want 0")
+    steady = ms[1:-1]
+    res.update({"losses": losses, "step_ms": ms,
+                "median_step_ms": statistics.median(steady),
+                "host_reads_per_step": [r[0] for r in reads],
+                "recompute_reads_per_step": [r[1] for r in reads],
+                "profile": prof})
+    if cfg.num_experts:
+        res["aux"] = aux
+    log(f"  median step {res['median_step_ms']:.1f} ms (steps 1-"
+        f"{TRAIN16_STEPS - 2}; step 0 {ms[0]:.1f}); host reads per step "
+        f"{reads[1][0]}, of them the recompute's {reads[1][1]}")
+    log(f"  profile of step {TRAIN16_STEPS - 1}: {prof['kernels']} device "
+        f"kernels, device busy {prof['device_ms']:.1f} of "
+        f"{prof['wall_ms']:.1f} ms, idle share {prof['idle_share']:.3f}")
+    for e in prof["top"][:6]:
+        log(f"    {e['ms']:.3f} ms  x{e['calls']}  {e['name'][:90]}")
+    # from here on the state the checks start from and the clean step's new
+    # params are resident; each check compares the new params it gives
+    # with the clean step's
+    del state
+    res["steps_s"] = time.perf_counter() - t_cell
+
+    # -- the abft=False twin ---------------------------------------------------
+    batch2 = batches[2]
+    above = {}
+    overall = torch.cuda.max_memory_allocated()
+
+    def peak_above(fn):
+        """fn()'s result and the peak memory it allocated above what was
+        resident when it started, GiB."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+    (clean, mc), above["protected"] = peak_above(lambda: step(mid, batch2))
+    clean = clean["params"]
+    (twin, mt), above["abft=False"] = peak_above(
+        lambda: make(cfg.replace(abft=False))(mid, batch2))
+    diff, worst = state_diff(clean, twin["params"])
+    same = not diff and torch.equal(mc["loss"], mt["loss"])
+    del twin
+    log(f"  step 2 from the same state: protected == abft=False bitwise: "
+        f"{same} (leaves differing: {diff[:4]}, largest |diff| {worst:.3g});"
+        f" the step's peak memory above the resident states: protected "
+        f"{above['protected']:.2f}, abft=False {above['abft=False']:.2f} "
+        "GiB")
+    if not same:
+        fail(f"{key}: the protected step differs from its abft=False twin "
+             f"in {diff[:6]} (largest {worst:.3g})")
+    res["bitwise_twin"] = same
+    res["step_peak_above_gib"] = above
+
+    # -- drills ----------------------------------------------------------------
+    res["drills"] = {}
+    for label, site, rep_hit in drills:
+        calls, ladders = [], []
+
+        def hook(o, rep_hit=rep_hit, calls=calls):
+            calls.append(current_repeat())
+            if current_repeat() != rep_hit:
+                return o
+            o = o.clone()
+            o.reshape(-1)[12345 % o.numel()] += 1e4
+            return o
+
+        runner = StepRunner(step, FTPolicy())
+        with plan_scope(mode="correct"), inj.fault_scope(site, hook), \
+                counting_ladders(ladders):
+            got, m = runner.run(mid, batch2)
+        torch.cuda.synchronize()
+        v = tuple(int(x) for x in m["report"])
+        d_loss = abs(float(m["loss"]) - float(mc["loss"]))
+        diff, worst = state_diff(got["params"], clean)
+        del got
+        fired = calls.count(rep_hit)
+        st = runner.stats
+        log(f"  drill {label} at {site}, repeat {rep_hit}: verdict {v}, "
+            f"StepRunner {st['faults_detected']} detected / "
+            f"{st['faults_corrected']} corrected, {st['retries']} retries; "
+            f"the hook fired {fired} times in that repeat ({mb} forwards and "
+            f"their recomputes); grouped ladders {len(ladders)}; loss "
+            f"|diff| {d_loss:.3g}; new params bitwise the clean step's: "
+            f"{not diff} (largest |diff| {worst:.3g} over {len(diff)} "
+            "leaves)")
+        ok = (v[0] == 1 and v[1] != 0 and v[2] == 0
+              and st["faults_detected"] == 1 and st["faults_corrected"] == 1
+              and st["retries"] == 0 and fired == 2 * mb
+              and d_loss <= 1e-4 * abs(float(mc["loss"])))
+        if site.endswith(("/gate", "/up", "/down")) and "moe/" in site \
+                and "shared" not in site:
+            ok = ok and len(ladders) == 2 * mb
+        if not ok:
+            fail(f"{key}: drill {label}: verdict {v}, stats {st}, hook in "
+                 f"repeat {fired}, ladders {ladders}, loss {float(m['loss'])} "
+                 f"vs {float(mc['loss'])}")
+        res["drills"][label] = {"site": site, "repeat": rep_hit,
+                                "verdict": v, "bitwise_clean": not diff,
+                                "max_abs_diff": worst,
+                                "grouped_ladders": len(ladders)}
+    del clean, mid
+    res["checks_s"] = time.perf_counter() - t_cell - res["steps_s"]
+    res["peak_memory_gib"] = max(overall, torch.cuda.max_memory_allocated()
+                                 ) / 2 ** 30
+    log(f"  peak device memory {res['peak_memory_gib']:.2f} GiB")
+    if res["peak_memory_gib"] >= TRAIN16_PEAK_GIB:
+        fail(f"{key}: peak memory {res['peak_memory_gib']:.2f} GiB")
+
+    # -- remat on against off ----------------------------------------------------
+    if remat_layers:
+        cfg = cfg.replace(num_layers=remat_layers)
+    del batches, step
+    torch.cuda.empty_cache()
+    state = init(cfg)
+    peaks, on = [], None
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        new, m = make(cfg.replace(remat=remat))(state, batch2)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        if on is None:
+            on, loss_on = new["params"], m["loss"]
+        else:
+            diff, worst = state_diff(on, new["params"])
+            same = not diff and torch.equal(loss_on, m["loss"])
+        del new
+    log(f"  remat on vs off at {cfg.num_layers} layers: bitwise {same} "
+        f"(largest |diff| {worst:.3g}); peak memory {peaks[0]:.2f} / "
+        f"{peaks[1]:.2f} GiB")
+    if not same:
+        fail(f"{key}: remat on and off differ in {diff[:6]}")
+    res["remat_check"] = {"layers": cfg.num_layers, "bitwise": True,
+                          "peak_gib_on": peaks[0], "peak_gib_off": peaks[1]}
+    res["seconds"] = time.perf_counter() - t_cell
+    log(f"  {key}: {res['seconds']:.1f} s (steps {res['steps_s']:.1f}, twin "
+        f"and drills {res['checks_s']:.1f})")
+    return res
+
+
+def run_block_training(report) -> dict:
+    """Phase 16: training through the ssm, rec and moe blocks at full
+    width (train_cell): 16a Mamba2-1.3B at full depth with its drill at
+    one repeat's in_proj; 16b RecurrentGemma-2B at RG_TRAIN_LAYERS
+    layers, its drill at one repeat's rec in_x; 16c Kimi-K2 at MOE_LAYERS layers with
+    MOE_TRAIN_EXPERTS experts and Adafactor, its drills at the fp32 router
+    and at the experts' gate (the grouped ladder)."""
+    from repro_torch import configs
+    from repro_torch.optim import OptConfig
+
+    import torch
+    log("phase 16: training the ssm, rec and moe blocks at full width")
+    # the cells' states are tens of GB and a step allocates full-size
+    # temporaries of many sizes: expandable segments keep the caching
+    # allocator from fragmenting (16c's first step failed for 4.4 GiB with
+    # 25 GiB reserved but unallocated). Phase 16 runs last: no phase after
+    # it captures a CUDA graph.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    res = {}
+    cfg = configs.get(MAMBA_ARCH)
+    reps = cfg.stages()[1]
+    log("phase 16a: Mamba2-1.3B, full depth")
+    res["mamba"] = train_cell(
+        "16a", cfg, OptConfig(lr=TRAIN_LR), TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB,
+        [("in_proj", "stages/b0_ssm/ssm/in_proj", reps // 2)],
+        remat_layers=REMAT_CHECK_LAYERS)
+    log(f"phase 16b: RecurrentGemma-2B, {RG_TRAIN_LAYERS} of 26 layers")
+    res["rg"] = train_cell(
+        "16b", configs.get(RG_ARCH).replace(num_layers=RG_TRAIN_LAYERS),
+        OptConfig(lr=TRAIN_LR), TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB,
+        [("in_x", "stages/b0_rec/rec/in_x", 1)])
+    log(f"phase 16c: Kimi-K2, {MOE_LAYERS} of 61 layers, {MOE_TRAIN_EXPERTS}"
+        " of 384 experts")
+    res["kimi"] = train_cell(
+        "16c", configs.get(MOE_ARCH).replace(num_layers=MOE_LAYERS,
+                                             num_experts=MOE_TRAIN_EXPERTS),
+        OptConfig(lr=MOE_TRAIN_LR, kind="adafactor"), MOE_TRAIN_BATCH,
+        MOE_TRAIN_SEQ, 1,
+        [("router", "stages/b1_moe/moe/router", 0),
+         ("gate", "stages/b1_moe/moe/gate", 0)])
+    res["cuts"] = {"rg_layers": RG_TRAIN_LAYERS, "kimi_layers": MOE_LAYERS,
+                   "kimi_experts": MOE_TRAIN_EXPERTS}
+    report["block_training"] = res
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 8: the campaign
 # --------------------------------------------------------------------------
 
@@ -4266,6 +4677,8 @@ def main(argv=None) -> int:
             return fn(*a)
         finally:
             phase_s[name] = time.perf_counter() - t0
+            log(f"  [phase {name}: {phase_s[name]:.1f} s, "
+                f"{time.perf_counter() - t_start:.1f} s since the start]")
 
     log("phase 1: environment")
     smi = nvidia_smi()
@@ -4342,6 +4755,7 @@ def main(argv=None) -> int:
     timed("13", run_rg_serving, report)
     timed("14", run_musicgen_serving, report)
     moe = timed("15", run_moe_serving, report)
+    timed("16", run_block_training, report)
     # the group-axis kernels' counts are the forwards with the grouped
     # entries pinned to them (force_fused_matmul leaves them on their plain
     # route, as the JAX package's does)

@@ -2,8 +2,7 @@
 plus reduced smoke variants; see also the per-arch modules
 (repro_torch/configs/<id>.py), which re-export these. The port runs
 every block family (attention, dense FFN, moe, Mamba-2 ssm, RG-LRU rec)
-and multi-codebook I/O; it trains none with moe blocks yet (ROADMAP item
-1.12)."""
+and multi-codebook I/O, in serving and in training."""
 from __future__ import annotations
 
 from .base import ModelConfig

@@ -79,11 +79,11 @@ class ModelConfig:
     abft_detect_only: bool = False    # paper's CoC-D-only hot path
     abft_row_chunk: int = 1024
     abft_col_chunk: int = 1024
-    # kept field for field so configs compare across the packages; an
-    # eager forward neither rematerialises nor scans, so neither has an
-    # effect here, in training too (forward_train's backward keeps the
-    # forward's activations)
+    # forward_train recomputes each stage repeat in the backward
+    # (torch.utils.checkpoint) instead of keeping its activations
     remat: bool = True
+    # kept field for field so configs compare across the packages: the
+    # eager stage loop does not scan, so it has no effect here
     scan_stages: bool = True
 
     # -------------------------------------------------------------- helpers

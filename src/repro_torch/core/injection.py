@@ -488,6 +488,23 @@ def fault_scope(path: str, fn: Hook) -> Iterator[None]:
         _SITE_FAULTS.reset(token)
 
 
+def active_faults() -> Tuple[Tuple[str, Hook], ...]:
+    """The registered (path, hook) pairs, innermost last."""
+    return _SITE_FAULTS.get()
+
+
+@contextlib.contextmanager
+def faults_as(hooks: Tuple[Tuple[str, Hook], ...]) -> Iterator[None]:
+    """Make `hooks` (an active_faults() value) the registered set for the
+    scope: a rematerialised stage's recompute fires the hooks its forward
+    saw."""
+    token = _SITE_FAULTS.set(hooks)
+    try:
+        yield
+    finally:
+        _SITE_FAULTS.reset(token)
+
+
 def site_fault(path: str) -> Optional[Hook]:
     """Innermost registered hook for `path`, or None."""
     for p, fn in reversed(_SITE_FAULTS.get()):

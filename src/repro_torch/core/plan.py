@@ -41,7 +41,7 @@ from .protected import (ENCODE_SLAB, WeightChecksums, _site_product,
                         grouped_weight_checksums, pick_chunk,
                         protect_matmul_output, protected_conv,
                         protected_grouped_matmul, protected_matmul,
-                        weight_checksums_matmul)
+                        weight_checksums_matmul, with_product_grad)
 from .types import (DEFAULT_CONFIG, DetectEvidence, FaultReport,
                     ProtectConfig)
 
@@ -247,18 +247,17 @@ def protect_op(op: OpSpec, inputs, entry: Optional[PlanEntry] = None,
                               wck=wck, cfg=use_cfg, o=o, mode=mode,
                               detected=detected)
     if op.kind == "grouped_matmul":
-        if o is not None or bias is not None:
-            # silently dropping either would report clean verdicts on
-            # operands the op never saw
+        if bias is not None:
+            # silently dropping it would report clean verdicts on operands
+            # the op never saw
             raise NotImplementedError(
-                "protect_op: grouped_matmul does not support `o` injection "
-                "or bias")
+                "protect_op: grouped_matmul does not support bias")
         if detected is not None:
             raise NotImplementedError(
                 "protect_op: grouped_matmul does not support an external "
                 "`detected` gate (per-group gates would need a vector)")
         return protected_grouped_matmul(d, w, wck=wck, cfg=use_cfg,
-                                        mode=mode)
+                                        mode=mode, o=o)
     raise ValueError(f"unknown op kind {op.kind!r}")
 
 
@@ -281,6 +280,7 @@ class _PlanContext:
     detected: Optional[Mapping[str, Any]] = None   # path -> carried flag
     prefix: Tuple[str, ...] = ()
     overrides: Dict[str, PlanEntry] = dataclasses.field(default_factory=dict)
+    repeat: Optional[int] = None                   # stage repeat being run
 
 
 _CTX: contextvars.ContextVar[Optional[_PlanContext]] = \
@@ -336,6 +336,60 @@ def entry_overrides(mapping: Dict[str, PlanEntry]) -> Iterator[None]:
         yield
     finally:
         ctx.overrides = saved
+
+
+@contextlib.contextmanager
+def repeat_scope(r: int) -> Iterator[None]:
+    """Name the stage repeat the scope runs (current_repeat; no-op when
+    no plan scope is active): the stage loop runs every repeat under the
+    same paths, so a fault hook tells one repeat from another by it."""
+    ctx = _CTX.get()
+    if ctx is None:
+        yield
+        return
+    saved = ctx.repeat
+    ctx.repeat = r
+    try:
+        yield
+    finally:
+        ctx.repeat = saved
+
+
+def current_repeat() -> Optional[int]:
+    """The stage repeat being run (None outside the stage loop)."""
+    ctx = _CTX.get()
+    return ctx.repeat if ctx is not None else None
+
+
+def capture_scope():
+    """The ambient state a protected forward reads, as it stands here: the
+    plan context (plan, mode, carried flags, path prefix, overrides,
+    repeat) and the fault hooks. replay_scope re-enters it."""
+    from .injection import active_faults
+    ctx = _CTX.get()
+    if ctx is not None:
+        ctx = dataclasses.replace(ctx, overrides=dict(ctx.overrides))
+    return ctx, active_faults()
+
+
+@contextlib.contextmanager
+def replay_scope(captured) -> Iterator[None]:
+    """Re-enter a capture_scope() value, its reads counted as a
+    recompute's: autograd recomputes a rematerialised stage in the
+    backward, after the forward's scopes have exited and maybe on its
+    device thread, and the recompute must see the plan entries, the
+    overrides and the fault hooks its forward saw."""
+    from .injection import faults_as
+    from .workflow import recompute_scope
+    ctx, hooks = captured
+    if ctx is not None:
+        ctx = dataclasses.replace(ctx, overrides=dict(ctx.overrides))
+    token = _CTX.set(ctx)
+    try:
+        with faults_as(hooks), recompute_scope():
+            yield
+    finally:
+        _CTX.reset(token)
 
 
 def current_path(name: str = "") -> str:
@@ -402,26 +456,32 @@ def protect_site(name: str, inputs, *, entry: Optional[PlanEntry] = None,
     if op.kind == "grouped_matmul":
         # per-group gates would need a vector; grouped sites re-detect
         detected = None
-    if o is None and op.kind == "matmul":
+    if o is None and op.kind in ("matmul", "grouped_matmul"):
         # serving-drill seam: an ambient fault hook at this exact path
         # (injection.fault_scope) corrupts the raw output, which then takes
-        # the ordinary `o=` injection path
+        # the ordinary `o=` injection path. Under autograd the workflow's
+        # output carries the gradient of the site's product, as on the
+        # clean path (protected.with_product_grad)
         from .injection import site_fault
         hook = site_fault(current_path(name))
         if hook is not None:
             d, w = inputs[0], inputs[1]
+            site_cfg = entry.cfg if entry is not None else use_cfg
+            if op.kind == "grouped_matmul":
+                o2 = _site_product(d, w, site_cfg)
+                return with_product_grad(o2, lambda o: protect_op(
+                    op, inputs, entry=entry, cfg=use_cfg, o=hook(o),
+                    mode=mode))
             lead, k, m = d.shape[:-1], d.shape[-1], w.shape[-1]
             d2 = d.reshape(-1, k)
-            o2 = _site_product(d2, w, entry.cfg if entry is not None
-                               else use_cfg)
+            o2 = _site_product(d2, w, site_cfg)
             if len(inputs) > 2:
                 o2 = (o2.to(torch.float32)
                       + inputs[2].to(torch.float32)).to(o2.dtype)
-            o2 = hook(o2.reshape(*lead, m))
-            out, rep = protect_op(op, (d2,) + tuple(inputs[1:]),
-                                  entry=entry, cfg=use_cfg,
-                                  o=o2.reshape(-1, m), mode=mode,
-                                  detected=detected)
+            out, rep = with_product_grad(o2, lambda o: protect_op(
+                op, (d2,) + tuple(inputs[1:]), entry=entry, cfg=use_cfg,
+                o=hook(o.reshape(*lead, m)).reshape(-1, m), mode=mode,
+                detected=detected))
             return out.reshape(*lead, m), rep
     return protect_op(op, inputs, entry=entry, cfg=use_cfg, o=o, mode=mode,
                       detected=detected)

@@ -70,7 +70,36 @@ def _site_product(d2, w, cfg: Optional[T.ProtectConfig]):
     if cfg is not None and cfg.enabled and cfg.use_fused_kernel:
         from repro_torch.kernels import ops as kops
         return kops.abft_matmul(d2.contiguous(), w)[0]
+    if d2.dim() == 3:
+        return grouped_matmul_raw(d2, w)
     return matmul_raw(d2, w)
+
+
+class _ProductGrad(torch.autograd.Function):
+    """`out`'s values with the gradient of `o`, the site's raw product."""
+
+    @staticmethod
+    def forward(ctx, o, out):
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def with_product_grad(o: Optional[torch.Tensor], protect: Callable):
+    """protect(o) -> (output, report): the workflow on a site's raw
+    product `o`. Under autograd it runs outside the graph on `o` detached,
+    and its output carries o's gradient: the checksum side and the ladder
+    keep no graph and no saved tensor, the clean output is `o` itself,
+    and a corrected element passes its gradient to the product as a clean
+    one does (the gradient is the plain product's)."""
+    if o is None or not (o.requires_grad and torch.is_grad_enabled()):
+        return protect(o)
+    od = o.detach()
+    with torch.no_grad():
+        out, rep = protect(od)
+    return (o if out is od else _ProductGrad.apply(o, out)), rep
 
 
 def _iota(n: int, device) -> torch.Tensor:
@@ -502,9 +531,9 @@ def protected_matmul(
         pre = None
     if bias is not None:
         o = (o.to(F32) + bias.to(F32)).to(o.dtype)
-    o, rep = protect_matmul_output(d2, w, o, wck=wck, bias=bias, cfg=cfg,
-                                   precomputed_sums=pre, mode=mode,
-                                   detected=detected)
+    o, rep = with_product_grad(o, lambda o: protect_matmul_output(
+        d2, w, o, wck=wck, bias=bias, cfg=cfg, precomputed_sums=pre,
+        mode=mode, detected=detected))
     return o.reshape(*lead, m), rep
 
 
@@ -765,6 +794,7 @@ def protected_grouped_matmul(
     wck: Optional[WeightChecksums] = None,
     cfg: T.ProtectConfig = T.DEFAULT_CONFIG,
     mode: Optional[str] = None,
+    o: Optional[torch.Tensor] = None,
 ):
     """Expert-batched protected GEMM O[g] = D[g] @ W[g] (D (G, N, K), W
     (G, K, M)): each group carries its own checksums (the grouped
@@ -782,9 +812,21 @@ def protected_grouped_matmul(
     ladder runs for the flagged groups alone (the JAX package's vmap of
     the gated ladder gives a clean group its own output unchanged); the
     report is the max over groups of (detected, corrected_by,
-    residual)."""
+    residual). `o` injects an already-computed (G, N, M) product. Under
+    autograd the output carries the plain product's gradient
+    (with_product_grad)."""
     if cfg is None or not cfg.enabled:
-        return _clean_result(grouped_matmul_raw(d, w), mode)
+        return _clean_result(grouped_matmul_raw(d, w) if o is None else o,
+                             mode)
+    if o is None and not cfg.use_fused_kernel:
+        o = grouped_matmul_raw(d, w)
+    return with_product_grad(o, lambda o: _protect_grouped_output(
+        d, w, o, wck, cfg, mode))
+
+
+def _protect_grouped_output(d, w, o, wck, cfg, mode):
+    """protected_grouped_matmul's workflow on its product `o` (None: the
+    group-axis kernel's, launched here)."""
     g, n, k = (int(x) for x in d.shape)
     rb = pick_chunk(n, cfg.row_chunk)
     if wck is not None and wck.cw1.shape[0] == g:
@@ -795,7 +837,8 @@ def protected_grouped_matmul(
                            WeightChecksums(cw1, cw2, cb))
     c5, c6, c7, absdot = cs.c5, cs.c6, cs.c7, cs.absdot
     pre = None
-    if cfg.use_fused_kernel:
+    route = functools.partial(_site_product, d, w, cfg)
+    if o is None:
         from repro_torch.kernels import ops as kops
         if mode == "detect_only":
             # the single-launch detect path over the group axis
@@ -813,10 +856,6 @@ def protected_grouped_matmul(
             bm, bn = kops._tile(rb, bm), kops._tile(cb, bn)
         o, parts = kops.abft_matmul(d.contiguous(), w, bm=bm, bn=bn, bk=bk)
         pre = kops.chunk_sums_from_partials(parts, rb, cb, o=o)
-        route = lambda: kops.abft_matmul(d.contiguous(), w)[0]
-    else:
-        o = grouped_matmul_raw(d, w)
-        route = lambda: grouped_matmul_raw(d, w)
     s5, s6, s7, sumsq = pre if pre is not None else _chunk_sums(o, rb, cb)
     tau5 = TH.tau_scalar(sumsq, k, o.dtype, cfg.tau_factor, absdot)
     flags, scores = _detect_groups(c5, c6, c7, s5, s6, s7, tau5, rb, cb,

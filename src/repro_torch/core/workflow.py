@@ -7,11 +7,15 @@ device. The JAX package gates the correction ladder CoC -> RC -> ClC -> FC
 on that flag, which costs one device->host read. Per-layer mode pays one
 read per protected op; the deferred mode reads every op's flag in ONE
 transfer per forward, which is why it exists. `HOST_READS` counts every
-such read, so tests and the chip run can pin both numbers.
+such read, so tests and the chip run can pin both numbers;
+`RECOMPUTE_READS` counts those of them that autograd's recompute of a
+rematerialised stage made in the backward (models.transformer).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Iterator, List, Tuple
 
 import torch
 
@@ -21,15 +25,32 @@ from . import types as T
 Rung = Tuple[int, Callable]
 
 HOST_READS = 0
+RECOMPUTE_READS = 0
+
+_RECOMPUTING: contextvars.ContextVar[bool] = \
+    contextvars.ContextVar("repro_torch_recomputing", default=False)
+
+
+@contextlib.contextmanager
+def recompute_scope() -> Iterator[None]:
+    """Mark the reads of the scope as a recompute's (RECOMPUTE_READS)."""
+    token = _RECOMPUTING.set(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.reset(token)
 
 
 def host_read(flag):
     """The host's view of a device flag (a bool, or a list for a vector),
-    counted in HOST_READS; host values pass through uncounted."""
-    global HOST_READS
+    counted in HOST_READS (and in RECOMPUTE_READS inside a
+    recompute_scope); host values pass through uncounted."""
+    global HOST_READS, RECOMPUTE_READS
     if not isinstance(flag, torch.Tensor):
         return flag
     HOST_READS += 1
+    if _RECOMPUTING.get():
+        RECOMPUTE_READS += 1
     if flag.dim() == 0:
         return bool(flag.item())
     return flag.tolist()

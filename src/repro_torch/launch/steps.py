@@ -69,11 +69,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     fresh leaves that share the params' storage, so no `.grad` is left on
     the caller's tensors."""
     _no_mesh(mesh_axes)
-    pattern, _, rem = cfg.stages()
-    if "moe" in cfg.prefix_pattern + pattern + rem:
-        raise NotImplementedError(
-            f"training a model with moe blocks ({cfg.name}) is not ported "
-            "yet (ROADMAP item 1.12); forward_train runs it, with its aux")
     lr_fn = cosine_schedule(opt_cfg.lr, warmup, total_steps)
     acc_dtype = F32 if not grad_dtype else (
         getattr(torch, grad_dtype) if isinstance(grad_dtype, str)

@@ -23,7 +23,11 @@ assignment's flat index decide which assignment keeps a capacity slot;
 and the combine, an fp32 scatter-add of k contributions per token in the
 JAX package, un-permutes the contributions to (T, k) and sums them over k
 in index order, with no float atomics (index_add_ on the card would sum in
-an order that changes from run to run).
+an order that changes from run to run). The dispatch's gather is spelled
+so that its backward is as deterministic: the tokens repeated k times,
+then permuted, so the backward un-permutes (each row written once) and
+sums the k copies of a token in a reduction, where a gather by token
+index would accumulate them in an index_put_.
 """
 from __future__ import annotations
 
@@ -141,7 +145,8 @@ def apply_moe(params: Dict, x: torch.Tensor, cfg,
     order, slot, valid, token_of = dispatch(top_e, e, cap)
 
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = xt[token_of]
+    # xt[token_of], with a deterministic backward (see the docstring)
+    buf[slot] = xt[:, None].expand(t, k, d).reshape(t * k, d)[order]
     h = buf[:e * cap].reshape(e, cap, d)
 
     g, r1 = _grouped("gate", h, params["gate"], abft)

@@ -100,8 +100,10 @@ def apply_rglru(params: Dict, x: torch.Tensor, cfg,
              * r_t)
     a_t = torch.exp(log_a)
     gated = i_t * xc.to(F32)
-    bx = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * gated
+    # jnp.maximum's spelling: its gradient at the floor splits as the
+    # reference's does
+    bx = torch.sqrt(torch.maximum(1.0 - torch.exp(2.0 * log_a),
+                                  log_a.new_tensor(1e-12))) * gated
 
     if state is None or s > 1:
         h = _scan_recurrence(a_t, bx, None if state is None else state["h"])

@@ -19,11 +19,13 @@ summed over the blocks into the forward's `aux`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, fp32_ieee, resolve_device
 from .._tree import tree_map
@@ -31,6 +33,7 @@ from ..core import (ModelReport, ProtectConfig, WeightChecksums,
                     ambient_mode, ambient_plan, as_fault_report,
                     clean_report, entry_overrides, merge_verdicts,
                     path_scope)
+from ..core.plan import capture_scope, repeat_scope, replay_scope
 from ..layers.attention import apply_attention, init_attention, init_cache
 from ..layers.embedding import embed, init_embedding, logits_head
 from ..layers.ffn import apply_ffn, init_ffn
@@ -300,8 +303,22 @@ def _stage_overrides(wcks: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
     return entry_overrides(ov)
 
 
+def _rematerialised(stage_fn, *args):
+    """stage_fn(*args) with its activations recomputed in the backward
+    (torch.utils.checkpoint, the JAX package's jax.checkpoint of a stage
+    repeat). The recompute runs after the forward's scopes have exited,
+    so it re-enters what the forward saw (core.plan.replay_scope): the
+    same plan entries and overrides, the same fault hooks - a fault fires
+    and is corrected again - its host reads counted as a recompute's. Its
+    reports are dropped: the step reports what the forward saw."""
+    captured = capture_scope()
+    return checkpoint(stage_fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          replay_scope(captured)))
+
+
 def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
-             positions=None):
+             positions=None, remat=False):
     """Shared trunk. tokens: (B, S), or (B, S, K) for multi-codebook
     archs (logits (B, S, K, V)). Returns (logits, sectioned
     ModelReport, aux, new_caches); aux is the moe blocks' load-balancing
@@ -314,7 +331,9 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     The caches are copied once and updated in place in the copy, so the
     caller's caches are left as they were (the JAX package's functional
     semantics): a deferred corrective rerun starts from the step's input
-    state, the ssm's and the rec's recurrences included."""
+    state, the ssm's and the rec's recurrences included.
+    `remat` rematerialises each stage repeat on the uncached path under
+    autograd (_rematerialised), as the JAX package's forward_train does."""
     abft = abft_config(cfg)
     mode = ambient_mode()
     pattern, reps, rem = cfg.stages()
@@ -339,15 +358,23 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
 
     if reps:
         stage_wck = _stage_wck_xs()
-        srep = clean_report(mode)
-        for r_i in range(reps):
+        remat = remat and caches is None and torch.is_grad_enabled()
+
+        def stage_once(x, r_i):
             sp = tree_map(lambda t: t[r_i], params["stages"])
             wcks = {n: (c1[r_i], c2[r_i]) for n, (c1, c2) in stage_wck.items()}
             sc = None if caches is None else \
                 tree_map(lambda t: t[r_i], caches["stages"])
-            with path_scope("stages"), _stage_overrides(wcks):
+            with path_scope("stages"), _stage_overrides(wcks), \
+                    repeat_scope(r_i):
                 x, r, _, a = _apply_blocks(pattern, sp, x, cfg, abft,
                                            positions, sc, cache_pos)
+            return x, r, a
+
+        srep = clean_report(mode)
+        for r_i in range(reps):
+            x, r, a = (_rematerialised(stage_once, x, r_i) if remat
+                       else stage_once(x, r_i))
             srep, aux = merge_verdicts(srep, r), aux + a
         sections["stages"] = srep
 
@@ -408,10 +435,12 @@ def forward_train(params, tokens, cfg):
     contract (step runners and the microbatch loop merge it); use
     `train_apply` + core.ProtectedModel for the sectioned / deferred
     workflow. aux is the moe blocks' load-balancing loss (0 without
-    them). `cfg.remat` has no effect: an eager backward keeps the
-    forward's activations."""
+    them). With `cfg.remat` each stage repeat keeps only its input for
+    the backward, which recomputes the repeat (the JAX package's
+    jax.checkpoint of the stage); the gradients are bitwise those without
+    it."""
     with fp32_ieee():
-        logits, rep, aux, _ = _forward(params, tokens, cfg)
+        logits, rep, aux, _ = _forward(params, tokens, cfg, remat=cfg.remat)
     return logits, as_fault_report(rep), aux
 
 

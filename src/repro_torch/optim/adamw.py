@@ -101,25 +101,37 @@ def apply_updates(params, grads, state, cfg: OptConfig, lr
     d2 = 1.0 - 1.0 / step.to(F32) ** 0.8     # beta2 schedule
 
     def upd(p, g, v):
+        # the reference's arithmetic, op for op; the full-size fp32
+        # temporaries are dropped or reused as soon as they are spent (an
+        # expert stack of Kimi-K2's is 3.8 GB in fp32 per temporary)
         g32 = g.to(F32)
-        g2 = g32 * g32 + 1e-30
+        g2 = g32 * g32
+        g2.add_(1e-30)
         if "r" in v:
             r = d2 * v["r"].to(F32) + (1 - d2) * torch.mean(g2, dim=-1)
             c = d2 * v["c"].to(F32) + (1 - d2) * torch.mean(g2, dim=-2)
-            denom = (r[..., None] * c[..., None, :]
-                     / (torch.mean(r, dim=-1, keepdim=True)[..., None]
-                        + 1e-30))
-            u = g32 / (torch.sqrt(denom) + 1e-30)
+            del g2
+            u = r[..., None] * c[..., None, :]
+            u.div_(torch.mean(r, dim=-1, keepdim=True)[..., None] + 1e-30)
+            u.sqrt_().add_(1e-30)
+            torch.div(g32, u, out=u)
             newv = {"r": r.to(v["r"].dtype), "c": c.to(v["c"].dtype)}
         else:
             vv = d2 * v["v"].to(F32) + (1 - d2) * g2
+            del g2
             u = g32 / (torch.sqrt(vv) + 1e-30)
             newv = {"v": vv.to(v["v"].dtype)}
+        del g32
         # relative step-size clipping (Adafactor's d=1.0)
         rms_u = torch.sqrt(torch.mean(u * u) + 1e-30)
-        u = u / torch.clamp(rms_u, min=1.0)
-        newp = p.to(F32) - lr * (u + cfg.weight_decay * p.to(F32))
-        return newp.to(p.dtype), newv
+        u.div_(torch.clamp(rms_u, min=1.0))
+        p32 = p.to(F32)
+        step_ = p32 * cfg.weight_decay
+        step_.add_(u)
+        del u
+        step_.mul_(lr)
+        newp = (p32 - step_).to(p.dtype)
+        return newp, newv
 
     out = tree_map(upd, params, grads, state["v"])
     pick = lambda i: tree_map(lambda _, t: t[i], params, out)

@@ -1350,3 +1350,143 @@ def test_corrected_prefill_keeps_clean_tokens_on_card(cuda_device):
     assert [(r["prefill_detected"], r["corrections_applied"], r["residuals"])
             for r in recs] == [(1, 1, 0)] * 8
     assert got == clean
+
+
+# --------------------------------------------------------------------------
+# training through the ssm, rec and moe blocks, rematerialised
+# --------------------------------------------------------------------------
+
+TRAIN_BLOCK_ARCHS = ("mamba2-1.3b-smoke", "recurrentgemma-2b-smoke",
+                     "kimi-k2-1t-a32b-smoke",
+                     "llama4-maverick-400b-a17b-smoke")
+# a stage site per family: the ssm's in_proj, the rec block's in_x, the
+# experts' grouped gate and the fp32 router
+TRAIN_BLOCK_SITES = {"mamba2-1.3b-smoke": "stages/b0_ssm/ssm/in_proj",
+                     "recurrentgemma-2b-smoke": "stages/b0_rec/rec/in_x",
+                     "kimi-k2-1t-a32b-smoke": "stages/b1_moe/moe/gate",
+                     "llama4-maverick-400b-a17b-smoke":
+                         "stages/b3_moe/moe/router"}
+
+
+def _block_train(dev, arch, seed=0):
+    """(cfg in bf16, state, batch, step factory) of a train-block smoke on
+    `dev`: 2 microbatches of 2 x 32 tokens, AdamW, warmup 0."""
+    import repro_torch.configs as TCF
+    from repro_torch.data import DataConfig, host_batch
+    from repro_torch.launch import steps as TS
+    from repro_torch.optim import OptConfig
+    cfg = TCF.get(arch).replace(dtype="bfloat16")
+    opt = OptConfig(lr=1e-3)
+    state = TS.init_train_state(torch.Generator().manual_seed(seed), cfg,
+                                opt, device=dev)
+    tokens, labels = host_batch(DataConfig(cfg.vocab_size, 32, 4), seed)
+    batch = {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+    make = lambda c: TS.make_train_step(c, opt, microbatches=2, warmup=0)
+    return cfg, state, batch, make
+
+
+def _states_equal(a, b) -> list:
+    from repro_torch._tree import tree_flatten_with_path
+    fa, fb = tree_flatten_with_path(a), tree_flatten_with_path(b)
+    assert [n for n, _ in fa] == [n for n, _ in fb]
+    return [n for (n, x), (_, y) in zip(fa, fb)
+            if not (x.dtype == y.dtype and torch.equal(x, y))]
+
+
+def _repeat_hook(calls, repeat=1):
+    """+1e4 at one element of the site's output in stage repeat `repeat`."""
+    from repro_torch.core.plan import current_repeat
+
+    def hook(o):
+        calls.append(current_repeat())
+        if current_repeat() != repeat:
+            return o
+        o = o.clone()
+        o.reshape(-1)[5] += 1e4
+        return o
+    return hook
+
+
+@pytest.mark.parametrize("arch", TRAIN_BLOCK_ARCHS)
+def test_remat_train_step_bitwise_on_card(cuda_device, arch):
+    """A bf16 train step on the card with remat on and off: the same new
+    state, loss and gnorm bitwise, the reports clean, no kernel launched
+    (the plain route, as the JAX package's step), and the rematerialised
+    step's recompute reading flags of its own (RECOMPUTE_READS)."""
+    from repro_torch.core import workflow as TW
+    cfg, state, batch, make = _block_train(cuda_device, arch)
+    outs, reads = [], []
+    TAM.LAUNCHES = TAM.DETECT_LAUNCHES = 0
+    for remat in (True, False):
+        TW.HOST_READS = TW.RECOMPUTE_READS = 0
+        outs.append(make(cfg.replace(remat=remat))(state, batch))
+        reads.append((TW.HOST_READS, TW.RECOMPUTE_READS))
+    (a, ma), (b, mb) = outs
+    assert TAM.LAUNCHES == TAM.DETECT_LAUNCHES == 0
+    assert tuple(int(x) for x in ma["report"]) == (0, 0, 0)
+    assert tuple(int(x) for x in mb["report"]) == (0, 0, 0)
+    assert torch.equal(ma["loss"], mb["loss"])
+    assert torch.equal(ma["gnorm"], mb["gnorm"])
+    assert not _states_equal(a, b)
+    assert reads[0][1] > 0 and reads[1][1] == 0
+    assert reads[0][0] - reads[0][1] == reads[1][0]
+
+
+@pytest.mark.parametrize("arch", TRAIN_BLOCK_ARCHS[2:])
+def test_protected_moe_step_bitwise_unprotected_on_card(cuda_device, arch):
+    """A protected, rematerialised bf16 moe train step on the card equals
+    its abft=False twin bitwise, and its own rerun: the dispatch's and the
+    combine's backward sum each token's k copies in a fixed order (no
+    float atomics), and the workflow's output carries the plain grouped
+    product's gradient."""
+    cfg, state, batch, make = _block_train(cuda_device, arch)
+    a, ma = make(cfg)(state, batch)
+    b, mb = make(cfg.replace(abft=False))(state, batch)
+    c, _ = make(cfg)(state, batch)
+    assert torch.equal(ma["loss"], mb["loss"])
+    assert not _states_equal(a, b)
+    assert not _states_equal(a, c)
+
+
+@pytest.mark.parametrize("arch", TRAIN_BLOCK_ARCHS)
+def test_corrected_stage_fault_under_remat_on_card(cuda_device, arch):
+    """+1e4 at one element of a stage site's output in repeat 1 of every
+    forward of one bf16 step on the card, remat on: the hook fires in the
+    forward and again in the recompute of each microbatch, StepRunner
+    counts one fault detected and corrected (residual 0) and no retry,
+    the loss is the clean step's within rtol 1e-4, and the new state
+    equals the remat=False faulted step's bitwise. At a bf16 site the
+    ladder takes the located elements from the route's product, so the
+    new state is the clean step's bitwise; at the fp32 router the scheme's
+    fix rounds, and the state stays within 2 lr of the clean one."""
+    import repro_torch.core as tc
+    from repro_torch.core import injection as tinj
+    from repro_torch.runtime.ft import FTPolicy, StepRunner
+    cfg, state, batch, make = _block_train(cuda_device, arch)
+    site = TRAIN_BLOCK_SITES[arch]
+    with tc.plan_scope(mode="correct"):
+        clean, mc = make(cfg)(state, batch)
+    runs = {}
+    for remat in (True, False):
+        calls = []
+        runner = StepRunner(make(cfg.replace(remat=remat)), FTPolicy())
+        with tc.plan_scope(mode="correct"), \
+                tinj.fault_scope(site, _repeat_hook(calls)):
+            runs[remat] = runner.run(state, batch)
+        assert runner.stats["faults_detected"] == 1
+        assert runner.stats["faults_corrected"] == 1
+        assert runner.stats["retries"] == 0
+        assert calls.count(1) == (4 if remat else 2), calls
+    (new, m), (new_off, _) = runs[True], runs[False]
+    det, by, resid = (int(x) for x in m["report"])
+    assert det == 1 and by != 0 and resid == 0
+    assert abs(float(m["loss"]) - float(mc["loss"])) <= \
+        1e-4 * abs(float(mc["loss"]))
+    assert not _states_equal(new, new_off)
+    if site.endswith("router"):
+        from repro_torch._tree import tree_flatten_with_path
+        for (n, x), (_, y) in zip(tree_flatten_with_path(new["params"]),
+                                  tree_flatten_with_path(clean["params"])):
+            assert float((x.float() - y.float()).abs().max()) <= 2e-3, n
+    else:
+        assert not _states_equal(new, clean)

@@ -50,7 +50,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as TST  # noqa: E402
 from repro_torch.layers import moe as TMOE  # noqa: E402
 from repro_torch.models import transformer as TM  # noqa: E402
-from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.optim import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.runtime import ft as tft  # noqa: E402
 from repro_torch.serving import ProtectedSession  # noqa: E402
 from torch_parity import (_shared_dir, assert_close, normal,  # noqa: E402
@@ -605,7 +605,8 @@ def _jax_forward_train(model):
 def test_forward_train_aux_matches_jax(model, tmp_path_factory):
     """forward_train returns the moe blocks' load-balancing loss summed
     over both repeats, equal to the JAX package's (rtol 1e-5), beside the
-    logits; the train step refuses moe models, naming ROADMAP 1.12."""
+    logits; the train step takes moe models (its loss adds 0.01 aux; held
+    to the JAX package's in tests/test_torch_train_blocks.py)."""
     _, cfg_t, _, pt = model
     ref = shared_reference(tmp_path_factory, "moe_forward_train",
                            lambda: _jax_forward_train(model))
@@ -616,8 +617,12 @@ def test_forward_train_aux_matches_jax(model, tmp_path_factory):
     assert float(aux) > 0 and verdict(rep) == (0, 0, 0)
     _, _, aux_p = TM.forward_train(pt, torch.as_tensor(ref["tokens"]), cfg_t)
     assert torch.equal(aux_p, aux)
-    with pytest.raises(NotImplementedError, match="1.12"):
-        TST.make_train_step(cfg_t, OptConfig())
+    step = TST.make_train_step(cfg_t, OptConfig(), warmup=0)
+    toks = torch.as_tensor(ref["tokens"])
+    state = {"params": pt, "opt": init_opt_state(pt, OptConfig()),
+             "step": torch.zeros((), dtype=torch.int32)}
+    _, m = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert torch.isfinite(m["loss"]) and verdict(m["report"]) == (0, 0, 0)
 
 
 # ---------------------------------------------------------------------------

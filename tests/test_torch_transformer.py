@@ -279,9 +279,10 @@ def test_host_reads_per_mode(model, plan_t):
 
 
 def test_unported_blocks_name_their_roadmap_item():
-    """moe blocks (kimi-k2) build and plan now (tests/test_torch_moe.py
-    holds them to the JAX package); what is left of them, training, raises
-    naming its ROADMAP item."""
+    """moe blocks (kimi-k2) build, plan and train now
+    (tests/test_torch_moe.py and tests/test_torch_train_blocks.py hold
+    them to the JAX package); what is left of their training, the sharded
+    step, raises naming its ROADMAP item."""
     from repro_torch.launch import steps as TST
     from repro_torch.optim import OptConfig
     cfg = TCF.get("kimi-k2-1t-a32b-smoke")
@@ -290,5 +291,6 @@ def test_unported_blocks_name_their_roadmap_item():
         (2, 8, 64, 48)
     kinds = [s.op.kind for s in tcore.protection_spec(cfg).sites]
     assert kinds.count("grouped_matmul") == 3
+    assert callable(TST.make_train_step(cfg, OptConfig()))
     with pytest.raises(NotImplementedError, match="1.12"):
-        TST.make_train_step(cfg, OptConfig())
+        TST.make_train_step(cfg, OptConfig(), mesh_axes=("data", "model"))
