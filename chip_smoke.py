@@ -168,11 +168,11 @@ Phases, each fatal on failure:
      per forward; the prefill drill at one repeat's attn_swa wk (the
      KV-cache write), the decode drill at one repeat's rec in_x (it feeds
      both the conv tail and h);
-  14. MusicGen-large at full width and 12 of its 48 layers in bf16
+  14. MusicGen-large at full width and 6 of its 48 layers in bf16
      (attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
      the untied 2048 x 8192 head; random params drawn on the card from a
      seed), served as phase 12 with prompts of (16-128, 4) tokens and
-     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 85
+     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 43
      launches and reads per forward, every
      codebook's served token teacher-forced within the bounds of phase
      12; the prefill drill at one repeat's attention wk, the decode drill
@@ -227,7 +227,37 @@ Phases, each fatal on failure:
      clean ones or their largest difference printed; remat on against off
      bitwise (Mamba2-1.3B at 4 layers), peak memory of each; step ms, host
      reads (the recompute's apart), peak memory under 70 GiB and a
-     profile of one step.
+     profile of one step;
+  3h. (after 3g) both bf16 kernels at one rank's local GEMMs of Yi-9B on
+     model 2 (wq 4096 x 2048, wk/wv 4096 x 256 re-encoded from the
+     shard, the row-parallel wo and down halves, gate/up's 5504 columns
+     in 688-wide chunks, the head's 32,000 vocabulary columns) at 8 and
+     128 rows, checked as 3c;
+  17. (after 3h, before 4) the (data, model) mesh: Yi-9B at full width
+     (d 4096, 32 query heads on 4 KV heads of 128, d_ff 11008, untied
+     64,000 head, bf16) on a (2, 2) mesh of four ranks, child processes
+     that share the card through gloo on CUDA tensors (launch.mesh
+     .run_ranks; no number of it is a multi-card speed). 17a serves 8 of
+     its 48 layers (params drawn on the card from a seed, each rank
+     keeping its shard; the plan sharded by ProtectionPlan.shard) with
+     phase 6's traffic, deferred, the kernels pinned: 57 detect launches
+     and 1 host read per forward per rank, per_layer's same tokens, the
+     served tokens within DELTA of the unsharded unprotected forward's
+     top, +1e3 at rank 1's row-parallel wo partial detected, corrected
+     and attributed to slot 3's request with the clean tokens; the decode
+     step against the unsharded session's. 17b trains 2 layers (fp32
+     AdamW, lr 1e-3, warmup 0, 8 x 256 in 2 microbatches, remat on, 3
+     steps) against the unsharded steps, which run after the mesh's ranks
+     have left the card: each step's loss within YI_LOSS_TOL, each leaf's
+     update within YI_UPDATE_TOL of the unsharded update, and each param
+     within the JAX test's 2e-2, with a half-batch and an unchanged-state
+     control read beside them; replicated leaves bitwise across ranks;
+     +1e3 at rank 1's ffn/up shard corrected, its loss and new params
+     bitwise the clean step's; the card's memory in use by every process
+     under MESH_PEAK_GIB. 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's
+     widths in bf16 bitwise the unsharded session (tokens, counters,
+     launches, logits; the mesh's collectives are no-ops on axes of one
+     rank, so it checks NCCL's set-up, plus one all_reduce by hand).
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -243,6 +273,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -361,10 +392,11 @@ MUSICGEN_SITES = (("wq/wk/wv/wo", 2048, 2048, False, 192),
                   ("down", 8192, 2048, False, 48),
                   ("head", 2048, 8192, False, 1))
 MUSICGEN_ROWS = SERVE_ROWS
-# depth of phase 14's MusicGen-large: its first 12 layers at full width
-# (cut from 48 to 24, then to 12 to make room for phase 16, keeping the
-# whole run near ten minutes); phase 3e keeps the full-depth counts
-MUSICGEN_LAYERS = 12
+# depth of phase 14's MusicGen-large: its first 6 layers at full width
+# (cut from 48 to 24, then to 12 to make room for phase 16, then to 6 for
+# phase 17, keeping the whole run near ten minutes); phase 3e keeps the
+# full-depth counts
+MUSICGEN_LAYERS = 6
 # the MoE slice: Kimi-K2 at full width and 2 of its 61 layers (the dense
 # prefix layer, then one repeat of attention and a moe block of 384
 # experts, top-8, and a shared expert), bf16, served as phase 6 serves
@@ -413,6 +445,47 @@ MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 128
 # at d 7168, the routing collapsed (aux 1.2 -> 17) and the loss rose
 MOE_TRAIN_LR = 1e-4
 TRAIN16_PEAK_GIB = 70.0
+# phase 17: the (data, model) mesh. Yi-9B at full width (d 4096, 32 query
+# heads on 4 KV heads of 128, d_ff 11008, an untied 64000 head, bf16) on
+# a (data 2, model 2) mesh of four ranks: four processes that share the
+# one card, their collectives on gloo over CUDA tensors (NCCL refuses two
+# ranks on one device). 17a serves it at YI_LAYERS of its 48 layers, 17b
+# trains it at YI_TRAIN_LAYERS; 17c serves yi-9b-smoke's widths in bf16 on
+# a (1, 1) NCCL mesh
+YI_ARCH = "yi-9b"
+YI_MESH = (2, 2)
+YI_LAYERS = 8
+YI_TRAIN_LAYERS = 2
+YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_MB = 8, 256, 2
+YI_TRAIN_STEPS = 3
+YI_TRAIN_LR = 1e-3
+YI_TRAIN_TOL = 2e-2            # the JAX package's sharded-step tolerance
+# 17b's tighter gates, each set between the sound runs' largest reading
+# and the controls' (yi_train_reference; PERF.md gives both): the loss of
+# each step within YI_LOSS_TOL of the unsharded step's, and each leaf's
+# update within YI_UPDATE_TOL of the unsharded update (Frobenius, relative)
+YI_LOSS_TOL = 2.5e-3
+YI_UPDATE_TOL = 0.4
+MESH_TIMEOUT_S = 600
+# the card's memory in use by every process during 17a/b, the unsharded
+# reference apart: four ranks' training at ~12.2 GiB allocated each
+# (AdamW's fp32 moments are held whole on both data ranks, twice while
+# the functional update runs): 54.7-57.3 GiB in all when measured, and
+# the limit leaves room for the run-to-run spread of that reading
+MESH_PEAK_GIB = 64.0
+# phase 3h: one rank's local GEMMs of Yi-9B at model 2 (label, K, M, W read
+# transposed, launches per forward at YI_LAYERS layers): wq's 16 heads,
+# wk/wv's 2 KV heads (256 columns: the full leaf's one 512-wide chunk
+# does not divide, so the rank's plan encodes its own), wo's and down's
+# row-parallel halves, gate/up's 5504 columns in 8 of the leaf's 688-wide
+# chunks, the head's 32000 vocabulary columns
+YI_SHARD_SITES = (("wq", 4096, 2048, False, YI_LAYERS),
+                  ("wk/wv", 4096, 256, False, 2 * YI_LAYERS),
+                  ("wo", 2048, 4096, False, YI_LAYERS),
+                  ("gate/up", 4096, 5504, False, 2 * YI_LAYERS),
+                  ("down", 5504, 4096, False, YI_LAYERS),
+                  ("head", 4096, 32000, False, 1))
+YI_SHARD_ROWS = (8, 128)
 
 
 def log(*a):
@@ -4474,6 +4547,609 @@ def run_block_training(report) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 3h and 17: the (data, model) mesh
+# --------------------------------------------------------------------------
+
+def check_yi_shard_kernels(gen, report):
+    """Phase 3h: both bf16 kernels at one rank's local GEMM shapes of
+    Yi-9B on model 2 (phase 17a's 57 detect launches per forward), at a
+    decode step's 8 rows and 128."""
+    return check_model_kernels(gen, report, "yi_shard_kernels",
+                               YI_SHARD_SITES, YI_SHARD_ROWS)
+
+
+def _digest(tree) -> dict:
+    import hashlib
+    from repro_torch._tree import tree_flatten_with_path
+    return {p: hashlib.sha256(t.detach().contiguous().view(-1).view(
+        __import__("torch").uint8).cpu().numpy().tobytes()).hexdigest()
+        for p, t in tree_flatten_with_path(tree)}
+
+
+def _mesh_session(params, cfg, plan, prompts, gen: int, mesh,
+                  correction="auto", hook=None):
+    """One ProtectedSession (sharded when `mesh` is given) over `prompts`:
+    (session, request ids, report, median decode-step ms)."""
+    import torch
+    from repro_torch.core import injection
+    from repro_torch.serving import ProtectedSession
+    sess = ProtectedSession(params, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+                            correction=correction, mesh=mesh, device=DEVICE)
+    rids = [sess.submit(p, max_new_tokens=gen) for p in prompts]
+    scope = (injection.fault_scope(*hook) if hook
+             else contextlib.nullcontext())
+    with scope:
+        rep = sess.run()
+    torch.cuda.synchronize()
+    ms = statistics.median(e["dispatch_s"] * 1e3
+                           for e in sess.stats.decode_log)
+    return sess, rids, rep, ms
+
+
+def yi_mesh_rank(rank: int, ref_dir: str) -> dict:
+    """One rank of phases 17a and 17b (launch.mesh.run_ranks starts four):
+    what the parent checks, as host values."""
+    import torch
+    from repro_torch import configs, core
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as M
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(*YI_MESH, backend="gloo", device=DEVICE)
+    out = {"rank": rank, "coords": dict(mesh.coords)}
+    t0 = time.perf_counter()
+    cfg = configs.get(YI_ARCH).replace(num_layers=YI_LAYERS)
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    plan = core.build_plan(params, cfg, batch=SLOTS, seq=MAX_LEN,
+                           device=DEVICE)
+    fused = core.force_fused_matmul(plan)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+
+    # -- 17a: the main path: deferred on the mesh, the kernels pinned ------
+    t0 = time.perf_counter()
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    sess, rids, rep, ms = _mesh_session(params, cfg, fused, prompts, GEN,
+                                        mesh)
+    c = rep["counters"]
+    tokens = [sess.tokens_for(r) for r in rids]
+    out["deferred"] = {
+        "counters": c, "forwards": c["prefills"] + c["decode_steps"],
+        "detect_launches": AM.DETECT_LAUNCHES, "launches": AM.LAUNCHES,
+        "host_reads": workflow.HOST_READS, "decode_ms": ms,
+        "completed": rep["completed"],
+        "reasons": [r["finish_reason"] for r in rep["requests"]],
+        "hits": sum(int(any(e["hit"])) for e in sess.stats.decode_log)}
+    out["tokens"] = tokens
+    del sess
+    # per_layer on the mesh: the first 8 requests' first 8 tokens
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    s_pl, r_pl, rep_pl, _ = _mesh_session(params, cfg, fused,
+                                          prompts[:SLOTS], 8, mesh,
+                                          correction="per_layer")
+    c_pl = rep_pl["counters"]
+    out["per_layer"] = {
+        "tokens": [s_pl.tokens_for(r) for r in r_pl],
+        "forwards": c_pl["prefills"] + c_pl["decode_steps"],
+        "launches": AM.LAUNCHES, "host_reads": workflow.HOST_READS}
+    del s_pl
+    # +1e3 at rank 1's row-parallel wo partial, at slot 3's row of every
+    # decode step (rank 1 holds data shard 0: slots 0-3), every layer
+    target = 3
+    local_slots = SLOTS // mesh.axis_size("data")
+
+    def wo_hook(o):
+        if o.dim() == 3 and o.shape[0] == local_slots and o.shape[1] == 1:
+            o = o.clone()
+            o[target % local_slots, 0, 1234 % o.shape[-1]] += 1e3
+        return o
+
+    drill_at = 1
+    s_d, r_d, rep_d, _ = _mesh_session(
+        params, cfg, fused, prompts[:SLOTS], 8, mesh,
+        hook=(("stages/b0_attn_full/attn/wo", wo_hook)
+              if rank == drill_at else None))
+    recs = {r["id"]: r for r in rep_d["requests"]}
+    out["drill"] = {
+        "rank": drill_at, "target": target, "counters": rep_d["counters"],
+        "by_slot": {recs[r]["slot"]: {k: recs[r][k] for k in (
+            "faults_detected", "corrections_applied", "residuals")}
+            for r in r_d},
+        "tokens": [s_d.tokens_for(r) for r in r_d]}
+    del s_d
+    out["serve_s"] = time.perf_counter() - t0
+
+    out["serve_peak_before_reference_gib"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank == 0:
+        d = out["deferred"]
+        log(f"  [rank 0] setup {out['setup_s']:.1f} s, the three mesh "
+            f"sessions {out['serve_s']:.1f} s; deferred decode step "
+            f"{d['decode_ms']:.2f} ms, {d['detect_launches']} detect "
+            f"launches, {d['host_reads']} reads over {d['forwards']} "
+            "forwards")
+    # the unsharded session on the same params and the teacher-forced gate,
+    # on rank 0 (the others wait at the next collective, their cached
+    # memory handed back to the card)
+    torch.cuda.empty_cache()
+    if rank == 0:
+        t0 = time.perf_counter()
+        s_u, r_u, rep_u, ms_u = _mesh_session(params, cfg, fused, prompts,
+                                              GEN, None)
+        out["unsharded"] = {"decode_ms": ms_u,
+                            "tokens": [s_u.tokens_for(r) for r in r_u]}
+        del s_u
+        gap, worst = teacher_forced(params, cfg, fused, prompts, tokens)
+        out["teacher_forced"] = {"max_logit_gap": gap, "max_margin": worst}
+        out["reference_s"] = time.perf_counter() - t0
+    del params, plan, fused
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    from repro_torch.runtime import sharding as SH
+    SH.axis_max(torch.zeros(1, device=DEVICE), mesh, "world")   # join
+    out["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = _yi_mesh_training(rank, mesh, ref_dir)
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def _yi_train_inputs(device):
+    """17b's config, start params and batches, drawn on the card from the
+    seed: the mesh's ranks and the unsharded reference make the same."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models import transformer as M
+    cfg = configs.get(YI_ARCH).replace(num_layers=YI_TRAIN_LAYERS)
+    full = M.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(SEED),
+        device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    batches = [{k: torch.randint(0, cfg.vocab_size,
+                                 (YI_TRAIN_BATCH, YI_TRAIN_SEQ),
+                                 generator=g, device=device)
+                for k in ("tokens", "labels")}
+               for _ in range(YI_TRAIN_STEPS)]
+    return cfg, full, batches
+
+
+def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
+    """17b on one rank: Yi-9B at YI_TRAIN_LAYERS layers, bf16 params,
+    AdamW, remat on; the drill pair, then YI_TRAIN_STEPS sharded steps,
+    their params gathered and saved by rank 0 to `ref_dir` for the
+    unsharded reference, which runs after the mesh's ranks have left the
+    card (yi_train_reference)."""
+    import torch
+    from repro_torch import core
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.core import injection
+    from repro_torch.core.plan import current_repeat
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.runtime import sharding as SH
+    # four ranks' training states of ~12 GiB share the card, and a step
+    # allocates temporaries of many sizes: expandable segments keep each
+    # rank's caching allocator from reserving GiBs it does not hold (as
+    # phase 16). Training is the rank's last work: it captures no graph.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    t0 = time.perf_counter()
+    opt = OptConfig(lr=YI_TRAIN_LR)
+    cfg, full, batches = _yi_train_inputs(DEVICE)
+    specs = SH.param_shardings(full, mesh, cfg)
+    flat = SH.flat_specs(specs)
+    local = SH.shard_tree(full, specs, mesh)
+    del full
+    state = {"params": local, "opt": init_opt_state(local, opt),
+             "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    del local
+    step = ST.make_train_step(cfg, opt, microbatches=YI_TRAIN_MB, warmup=0,
+                              mesh_axes=("data", "model"))
+    out = {"setup_s": time.perf_counter() - t0}
+
+    # the drill pair: one step from the start state, clean and with +1e3
+    # at rank 1's shard of the first repeat's ffn/up (forward and remat's
+    # recompute), both inside plan_scope(mode="correct")
+    def up_hook(o):
+        if current_repeat() == 0:
+            o = o.clone()
+            o[0, 5, 7] += 1e3
+        return o
+
+    with SH.parallel_scope(mesh, specs):
+        with core.plan_scope(mode="correct"):
+            clean, m_c = step(state, batches[0])
+        clean = clean["params"]          # the new moments go at once
+        hook = ("stages/b1_ffn/ffn/up", up_hook) if rank == 1 else None
+        with core.plan_scope(mode="correct"), (
+                injection.fault_scope(*hook) if hook
+                else contextlib.nullcontext()):
+            drilled, m_d = step(state, batches[0])
+        drilled = drilled["params"]
+    pairs = list(zip(tree_flatten_with_path(clean),
+                     tree_flatten_with_path(drilled)))
+    out["drill"] = {
+        "rank": 1,
+        "report": [int(x) for x in m_d["report"]],
+        "clean_report": [int(x) for x in m_c["report"]],
+        "loss": float(m_d["loss"]), "clean_loss": float(m_c["loss"]),
+        "params_bitwise": all(torch.equal(a, b) for (_, a), (_, b) in pairs),
+        "max_abs_diff": max(float((a.float() - b.float()).abs().max())
+                            for (_, a), (_, b) in pairs)}
+    del clean, drilled, pairs
+
+    # YI_TRAIN_STEPS sharded steps, timed
+    losses, ms = [], []
+    with SH.parallel_scope(mesh, specs):
+        for b in batches:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        gathered = SH.unshard_tree(state["params"], specs, mesh)
+    out["losses"], out["step_ms"] = losses, ms
+    out["replicated"] = {p: h for p, h in _digest(state["params"]).items()
+                         if not SH.is_sharded(flat[p])}
+    out["reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+    if rank == 0:
+        log(f"  [rank 0] 17b sharded: losses {losses}, step ms {ms}")
+        torch.save({p: t.cpu() for p, t in
+                    tree_flatten_with_path(gathered)},
+                   os.path.join(ref_dir, "sharded_params.pt"))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def yi_train_reference(rank: int, ref_dir: str) -> dict:
+    """17b's unsharded reference, alone on the card once the mesh's ranks
+    have left it: YI_TRAIN_STEPS unsharded steps from the same start
+    params on the same batches, and two controls the gates must tell
+    from a sound sharded run: the steps on each batch's first half (one
+    data rank's rows alone) and the losses of the start state (an update
+    that left the state unchanged). For each leaf, the sharded update's
+    distance from the unsharded one, |d_s - d_r| / |d_r| (Frobenius, the
+    updates d = new - start in fp32; 0 where both are 0), and the
+    half-batch control's; the old per-element reading against the JAX
+    test's 2e-2 beside them."""
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.launch import steps as ST
+    from repro_torch.optim import OptConfig, init_opt_state
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    opt = OptConfig(lr=YI_TRAIN_LR)
+    cfg, full, batches = _yi_train_inputs(DEVICE)
+    ref_step = ST.make_train_step(cfg, opt, microbatches=YI_TRAIN_MB,
+                                  warmup=0)
+
+    def start():
+        return {"params": full, "opt": init_opt_state(full, opt),
+                "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+
+    def run(rows):
+        st, losses, ms = start(), [], []
+        for b in batches:
+            b = {k: v[:rows] for k, v in b.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, m = ref_step(st, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return dict(tree_flatten_with_path(st["params"])), losses, ms
+
+    ref, ref_losses, ref_ms = run(YI_TRAIN_BATCH)
+    half, half_losses, _ = run(YI_TRAIN_BATCH // 2)
+    # the unchanged state's step 0 is the unsharded step 0
+    unchanged_losses = [float(ref_step(start(), b)[1]["loss"])
+                        for b in batches[1:]]
+    sharded = torch.load(os.path.join(ref_dir, "sharded_params.pt"))
+    p0 = dict(tree_flatten_with_path(full))
+
+    def update_gap(a, r, s0):
+        d_r = r.float() - s0.float()
+        gap = float(torch.linalg.vector_norm(a.float() - s0.float() - d_r))
+        norm = float(torch.linalg.vector_norm(d_r))
+        return gap / norm if norm else (0.0 if gap == 0 else math.inf)
+
+    upd, upd_half, over_tol, moves = {}, {}, {}, {}
+    for p, r in ref.items():
+        moves[p] = not torch.equal(r, p0[p])
+        a = sharded[p].to(DEVICE)
+        upd[p] = update_gap(a, r, p0[p])
+        upd_half[p] = update_gap(half[p], r, p0[p])
+        lim = YI_TRAIN_TOL + YI_TRAIN_TOL * r.float().abs()
+        over_tol[p] = float(((a.float() - r.float()).abs() / lim).max())
+    return {"losses": ref_losses, "step_ms": ref_ms,
+            "half_losses": half_losses,
+            "unchanged_losses": unchanged_losses,
+            "update_dist": upd, "half_update_dist": upd_half,
+            "moves": moves,
+            "worst_over_tol": max(over_tol.values()),
+            "worst_leaf": max(over_tol, key=over_tol.get),
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+            "seconds": time.perf_counter() - t0}
+
+
+def yi_nccl_rank(rank: int) -> dict:
+    """Phase 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's widths in bf16
+    against the unsharded session on the same params: tokens, counters
+    and the forward's logits bitwise."""
+    import torch
+    from repro_torch import configs, core
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as M
+    from repro_torch.runtime import sharding as SH
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(1, 1, backend="nccl", device=DEVICE)
+    cfg = configs.get(YI_ARCH + "-smoke").replace(dtype="bfloat16")
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    fused = core.force_fused_matmul(core.build_plan(
+        params, cfg, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+    out = {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        AM.DETECT_LAUNCHES = 0
+        s, rids, rep, _ = _mesh_session(params, cfg, fused, prompts, 8, m)
+        out[name] = {"tokens": [s.tokens_for(r) for r in rids],
+                     "counters": rep["counters"],
+                     "detect_launches": AM.DETECT_LAUNCHES}
+    n = min(len(p) for p in prompts)
+    toks = torch.as_tensor(__import__("numpy").stack(
+        [p[:n] for p in prompts[:SLOTS]]), device=DEVICE)
+    specs = SH.param_shardings(params, mesh, cfg)
+    with torch.no_grad():
+        want = M.forward_train(params, toks, cfg)[0]
+        with SH.parallel_scope(mesh, specs):
+            got = M.forward_train(SH.shard_tree(params, specs, mesh), toks,
+                                  cfg)[0]
+    out["logits_bitwise"] = bool(torch.equal(got, want))
+    # the seam skips the collectives of an axis of one rank, so one
+    # all_reduce goes to NCCL by hand
+    import torch.distributed as dist
+    x = torch.arange(1, 5, dtype=torch.float32, device=DEVICE)
+    dist.all_reduce(x, group=mesh.group("world"))
+    out["nccl_all_reduce"] = x.tolist()
+    return out
+
+
+@contextlib.contextmanager
+def card_memory_peak(out: dict, key: str, period_s: float = 0.05):
+    """The card's memory in use by every process (cudaMemGetInfo),
+    sampled on a thread every `period_s` while the scope runs; its peak
+    in GiB lands in out[key]."""
+    import threading
+    import torch
+    stop = threading.Event()
+    peak = [0]
+
+    def poll():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+            stop.wait(period_s)
+
+    t = threading.Thread(target=poll, daemon=True)
+    t.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        t.join()
+        out[key] = peak[0] / 2 ** 30
+
+
+def run_mesh_phase(report) -> dict:
+    """Phase 17: the (data, model) mesh (YI_MESH: four ranks that share the
+    card through gloo) serving (17a) and training (17b) Yi-9B at full
+    width, then a (1, 1) NCCL mesh (17c). The ranks are child processes
+    (launch.mesh.run_ranks); this process checks what they return."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    log(f"phase 17a/b: Yi-9B on a {YI_MESH} mesh of {math.prod(YI_MESH)} "
+        f"ranks sharing the card through gloo ({YI_LAYERS} layers served, "
+        f"{YI_TRAIN_LAYERS} trained)")
+    torch.cuda.empty_cache()        # the card's memory gate counts ours too
+    t0 = time.perf_counter()
+    card = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_17b_") as ref_dir:
+        with card_memory_peak(card, "peak_gib"):
+            ranks = run_ranks(yi_mesh_rank, math.prod(YI_MESH), "gloo",
+                              MESH_TIMEOUT_S, (ref_dir,))
+        res = {"wall_s": time.perf_counter() - t0}
+        # the unsharded training reference, alone on the card
+        t1 = time.perf_counter()
+        with card_memory_peak(card, "reference_peak_gib"):
+            (ref,) = run_ranks(yi_train_reference, 1, "gloo",
+                               MESH_TIMEOUT_S, (ref_dir,))
+        res["train_reference_s"] = time.perf_counter() - t1
+    res.update({"card_peak_gib": card["peak_gib"],
+                "reference_card_peak_gib": card["reference_peak_gib"],
+                "setup_s": [r["setup_s"] for r in ranks],
+                "serve_s": [r["serve_s"] for r in ranks]})
+    r0 = ranks[0]
+    n_sites = YI_LAYERS * 7 + 1
+    for r in ranks:
+        d = r["deferred"]
+        log(f"  rank {r['rank']} {r['coords']}: setup {r['setup_s']:.1f} s; "
+            f"deferred {d['completed']} requests, {d['forwards']} forwards, "
+            f"detect launches {d['detect_launches']}, abft_matmul "
+            f"{d['launches']}, host reads {d['host_reads']}, decode step "
+            f"{d['decode_ms']:.2f} ms; peak {r['serving_peak_gib']:.1f} GiB "
+            f"serving, {r['train_peak_gib']:.1f} GiB training")
+        if d["reasons"] != ["length"] * N_REQ or d["completed"] != N_REQ:
+            fail(f"17a rank {r['rank']}: requests finished {d['reasons']}")
+        c = d["counters"]
+        if c["faults_detected"] or c["dropped"] or d["hits"]:
+            fail(f"17a rank {r['rank']}: clean serving counted {c}")
+        if (d["detect_launches"] != n_sites * d["forwards"] or d["launches"]
+                or d["host_reads"] != d["forwards"]):
+            fail(f"17a rank {r['rank']}: {d['forwards']} forwards launched "
+                 f"{d['detect_launches']} detect / {d['launches']} "
+                 f"abft_matmul with {d['host_reads']} reads; want "
+                 f"{n_sites} detect launches and 1 read each")
+        if r["tokens"] != r0["tokens"]:
+            fail(f"17a: rank {r['rank']}'s tokens differ from rank 0's")
+        pl = r["per_layer"]
+        want = [t[:8] for t in r0["tokens"][:SLOTS]]
+        if pl["tokens"] != want:
+            fail(f"17a rank {r['rank']}: per_layer tokens differ from "
+                 "deferred's")
+        if (pl["launches"] != n_sites * pl["forwards"]
+                or pl["host_reads"] != n_sites * pl["forwards"]):
+            fail(f"17a rank {r['rank']}: per_layer {pl}")
+        dr = r["drill"]
+        by = dr["by_slot"]
+        cd = dr["counters"]
+        tgt = by[dr["target"]]
+        ok = (tgt["faults_detected"] == cd["decode_steps"]
+              and tgt["corrections_applied"] == cd["decode_steps"]
+              and tgt["residuals"] == 0
+              and all(v["faults_detected"] == 0 for sl, v in by.items()
+                      if sl != dr["target"])
+              and cd["faults_unattributed"] == 0
+              and cd["residual_steps"] == 0)
+        if not ok or dr["tokens"] != want:
+            fail(f"17a rank {r['rank']}: wo drill {by} {cd}, tokens equal "
+                 f"{dr['tokens'] == want}")
+    tf = r0["teacher_forced"]
+    un = r0["unsharded"]
+    same = sum(a == b for a, b in zip(r0["tokens"], un["tokens"]))
+    log(f"  per_layer on the mesh: {ranks[0]['per_layer']['launches']} "
+        f"abft_matmul launches and as many reads over "
+        f"{ranks[0]['per_layer']['forwards']} forwards, tokens == deferred")
+    log(f"  drill: +1e3 at rank {r0['drill']['rank']}'s row-parallel wo "
+        f"partial, slot {r0['drill']['target']}: "
+        f"{r0['drill']['counters']['faults_detected']} detected / "
+        f"{r0['drill']['counters']['faults_corrected']} corrected over "
+        f"{r0['drill']['counters']['decode_steps']} steps on every rank, "
+        "attributed to its request, tokens == clean")
+    log(f"  teacher-forced vs the unsharded unprotected forward: largest "
+        f"logit gap {tf['max_logit_gap']:.4g}; served tokens at most "
+        f"{tf['max_margin']:.4g} below the top (limit {DELTA}); "
+        f"{same}/{N_REQ} requests token-equal to the unsharded session")
+    if not tf["max_margin"] <= DELTA:
+        fail(f"17a: a served token's reference logit is "
+             f"{tf['max_margin']:.4g} below the top")
+    log(f"  decode step: mesh {[round(r['deferred']['decode_ms'], 3) for r in ranks]} "
+        f"ms per rank, unsharded session {un['decode_ms']:.3f} ms (four "
+        f"ranks on one card: not a multi-card speed)")
+    res["serving"] = {
+        "decode_ms": [r["deferred"]["decode_ms"] for r in ranks],
+        "unsharded_decode_ms": un["decode_ms"],
+        "detect_launches_per_forward": n_sites,
+        "forwards": r0["deferred"]["forwards"],
+        "detect_launches": [r["deferred"]["detect_launches"] for r in ranks],
+        "per_layer_launches": [r["per_layer"]["launches"] for r in ranks],
+        "per_layer_forwards": r0["per_layer"]["forwards"],
+        "host_reads": [r["deferred"]["host_reads"] for r in ranks],
+        "teacher_forced": tf, "token_equal_requests": same,
+        "drill": r0["drill"]["counters"],
+        "peak_gib": [r["serving_peak_gib"] for r in ranks]}
+
+    # -- 17b --------------------------------------------------------------
+    t = r0["train"]
+    loss_gap = [abs(a - b) for a, b in zip(t["losses"], ref["losses"])]
+    half_gap = [abs(a - b) for a, b in zip(ref["half_losses"],
+                                           ref["losses"])]
+    same_gap = [abs(a - b) for a, b in zip(ref["unchanged_losses"],
+                                           ref["losses"][1:])]
+    upd = ref["update_dist"]
+    worst_upd = max(upd, key=upd.get)
+    half_upd = [d for p, d in ref["half_update_dist"].items()
+                if ref["moves"][p]]
+    log(f"  17b: losses {t['losses']} sharded, {ref['losses']} unsharded; "
+        f"|loss gap| {[f'{x:.3g}' for x in loss_gap]} (limit "
+        f"{YI_LOSS_TOL}; controls: half batch "
+        f"{[f'{x:.3g}' for x in half_gap]}, unchanged state "
+        f"{[f'{x:.3g}' for x in same_gap]} after step 0)")
+    log(f"  17b updates: |d_sharded - d_unsharded| / |d_unsharded| at most "
+        f"{upd[worst_upd]:.4g} ({worst_upd}; limit {YI_UPDATE_TOL}); the "
+        f"half-batch control {min(half_upd):.4g}-{max(half_upd):.4g} on the "
+        f"{len(half_upd)} leaves that move (the others stay bitwise: bf16 "
+        "rounds their updates away); an unchanged state reads 1. "
+        f"Per element: |diff| / ({YI_TRAIN_TOL} + {YI_TRAIN_TOL} |p|) "
+        f"{ref['worst_over_tol']:.3g} at {ref['worst_leaf']}")
+    log(f"  17b step ms {[round(x, 1) for x in t['step_ms']]} sharded, "
+        f"{[round(x, 1) for x in ref['step_ms']]} unsharded (alone, "
+        f"{res['train_reference_s']:.1f} s with its controls)")
+    for i, g in enumerate(loss_gap):
+        if not g <= YI_LOSS_TOL:
+            fail(f"17b step {i}: loss {t['losses'][i]} sharded vs "
+                 f"{ref['losses'][i]} unsharded")
+    for p, d in upd.items():
+        if not d <= YI_UPDATE_TOL:
+            fail(f"17b: {p}'s update is {d:.4g} of the unsharded one "
+                 "away from it")
+    if not ref["worst_over_tol"] <= 1.0:
+        fail(f"17b: {ref['worst_leaf']} beyond {YI_TRAIN_TOL}")
+    for r in ranks:
+        if r["train"]["replicated"] != t["replicated"]:
+            fail(f"17b: rank {r['rank']}'s replicated leaves differ from "
+                 "rank 0's")
+        dr = r["train"]["drill"]
+        if not (dr["report"][0] and dr["report"][1] and not dr["report"][2]
+                and dr["clean_report"] == [0, 0, 0]
+                and dr["loss"] == dr["clean_loss"]
+                and dr["params_bitwise"]):
+            fail(f"17b rank {r['rank']}: ffn/up drill {dr}")
+    dr = r0["train"]["drill"]
+    log(f"  17b drill: +1e3 at rank 1's ffn/up shard (forward and "
+        f"recompute): report {dr['report']} on every rank, loss "
+        f"{dr['loss']} == clean {dr['clean_loss']}; new params bitwise the "
+        "clean step's on every rank; replicated leaves bitwise equal "
+        "across ranks")
+    log(f"  the card's memory in use, every process, at its peak: "
+        f"{card['peak_gib']:.1f} GiB on the mesh (limit {MESH_PEAK_GIB}; "
+        f"the ranks' own allocated peaks "
+        f"{[round(max(r['serving_peak_gib'], r['train_peak_gib']), 1) for r in ranks]}"
+        f" GiB, reserved in training "
+        f"{[round(r['train']['reserved_gib'], 1) for r in ranks]}), "
+        f"{card['reference_peak_gib']:.1f} GiB for the reference alone; "
+        f"phase 17a/b {res['wall_s']:.1f} s")
+    if card["peak_gib"] > MESH_PEAK_GIB:
+        fail(f"phase 17: the card held {card['peak_gib']:.1f} GiB")
+    res["training"] = {"losses": t["losses"], "unsharded": ref,
+                       "step_ms": [r["train"]["step_ms"] for r in ranks],
+                       "drill": r0["train"]["drill"],
+                       "peak_gib": [r["train_peak_gib"] for r in ranks],
+                       "reserved_gib": [r["train"]["reserved_gib"]
+                                        for r in ranks]}
+
+    # -- 17c --------------------------------------------------------------
+    log("phase 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's widths in bf16")
+    t0 = time.perf_counter()
+    (c,) = run_ranks(yi_nccl_rank, 1, "nccl", MESH_TIMEOUT_S)
+    res["nccl_s"] = time.perf_counter() - t0
+    ok = (c["mesh"]["tokens"] == c["unsharded"]["tokens"]
+          and c["mesh"]["counters"] == c["unsharded"]["counters"]
+          and c["mesh"]["detect_launches"]
+          == c["unsharded"]["detect_launches"] > 0
+          and c["logits_bitwise"]
+          and c["nccl_all_reduce"] == [1.0, 2.0, 3.0, 4.0])
+    log(f"  tokens, counters and {c['mesh']['detect_launches']} detect "
+        f"launches equal, forward logits bitwise, one NCCL all_reduce on "
+        f"the card: {ok} ({res['nccl_s']:.1f} s; the mesh's own "
+        "collectives are no-ops on axes of one rank)")
+    if not ok:
+        fail(f"17c: the (1, 1) NCCL mesh differs from the unsharded path: "
+             f"{c}")
+    res["nccl"] = {"detect_launches": c["mesh"]["detect_launches"]}
+    report["mesh"] = res
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 8: the campaign
 # --------------------------------------------------------------------------
 
@@ -4719,6 +5395,12 @@ def main(argv=None) -> int:
     kernels += timed("3f", check_moe_kernels, gen, report)
     log("phase 3g: the kernels at Kimi-K2's plain-matmul sites")
     timed("3g", check_kimi_kernels, gen, report)
+    log("phase 3h: the kernels at Yi-9B's local shapes on model 2")
+    timed("3h", check_yi_shard_kernels, gen, report)
+    # the mesh's ranks are processes of their own that share the card: run
+    # them while this process holds little of its memory
+    torch.cuda.empty_cache()
+    timed("17", run_mesh_phase, report)
 
     log("phase 4: the slice")
     res, slice_ctx = timed("4-5b", run_slice, report)

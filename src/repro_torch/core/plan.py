@@ -364,12 +364,14 @@ def current_repeat() -> Optional[int]:
 def capture_scope():
     """The ambient state a protected forward reads, as it stands here: the
     plan context (plan, mode, carried flags, path prefix, overrides,
-    repeat) and the fault hooks. replay_scope re-enters it."""
+    repeat), the fault hooks and the mesh (runtime.sharding's parallel
+    scope). replay_scope re-enters it."""
+    from ..runtime.sharding import current_parallel
     from .injection import active_faults
     ctx = _CTX.get()
     if ctx is not None:
         ctx = dataclasses.replace(ctx, overrides=dict(ctx.overrides))
-    return ctx, active_faults()
+    return ctx, active_faults(), current_parallel()
 
 
 @contextlib.contextmanager
@@ -378,18 +380,26 @@ def replay_scope(captured) -> Iterator[None]:
     recompute's: autograd recomputes a rematerialised stage in the
     backward, after the forward's scopes have exited and maybe on its
     device thread, and the recompute must see the plan entries, the
-    overrides and the fault hooks its forward saw."""
+    overrides, the fault hooks and the mesh its forward saw: under a mesh
+    it replays the forward's collectives, in the order autograd recomputes
+    the stages, which is the same on every rank."""
+    from ..runtime.sharding import parallel_as
     from .injection import faults_as
     from .workflow import recompute_scope
-    ctx, hooks = captured
+    ctx, hooks, par = captured
     if ctx is not None:
         ctx = dataclasses.replace(ctx, overrides=dict(ctx.overrides))
     token = _CTX.set(ctx)
     try:
-        with faults_as(hooks), recompute_scope():
+        with faults_as(hooks), parallel_as(par), recompute_scope():
             yield
     finally:
         _CTX.reset(token)
+
+
+def in_plan_scope() -> bool:
+    """Is a plan context active (are param-tree paths live)?"""
+    return _CTX.get() is not None
 
 
 def current_path(name: str = "") -> str:
@@ -649,6 +659,131 @@ class ProtectionPlan:
                     w_view=doc.get("w_view"),
                     execution=doc.get("execution"))
         return cls(entries=entries, meta=raw.get("meta", {}))
+
+    # -- sharding ----------------------------------------------------------
+    def shard(self, mesh, cfg=None, *, params, specs) -> "ProtectionPlan":
+        """This rank's plan on `mesh` (twin of the JAX package's
+        ProtectionPlan.shard): `params` is this rank's local tree
+        (runtime.sharding.shard_tree) of the params whose full tree has
+        the spec tree `specs` (param_shardings(..., cfg)).
+
+        Every local shard is first held to the entry's fingerprint, its
+        (sum, sum of |w|) summed over the mesh axes the leaf is sharded
+        on, so a shard is trusted only when the whole leaf matches the
+        plan (PlanStaleError otherwise). Each entry's checksums and
+        locator sums are then cut to the rank's shard: a column-sharded
+        weight keeps the column chunks it holds, a row-sharded one the
+        rows it holds. What cannot be cut is encoded from the local
+        shard: a chunk that straddles a shard boundary (Yi-9B's 512-column
+        wk/wv, one chunk, on two ranks), a row-sharded weight's column
+        locators (sums over every row) and a weight view's checksums.
+        Stacked entries are cut per repeat. The entries then record the
+        local shape and fingerprint; `meta["mesh"]` the mesh's shape and
+        the rank's coordinates. Grouped entries under a sharded spec are
+        ROADMAP item 1.12's later steps and raise."""
+        from ..runtime import sharding as SH
+        flat = SH.flat_specs(specs)
+        items = []
+        for name, e in self.entries.items():
+            leaf_path = _leaf_path(params, name)
+            spec = flat.get(leaf_path, ())
+            SH._check_executable(spec, mesh, name)
+            local = apply_w_view(weight_leaf(params, name), e.w_view)
+            items.append((name, e, spec, local))
+        # one collective for every fingerprint: a sharded leaf's rows are
+        # summed over 'model', a replicated leaf's stay as they are
+        fp = torch.tensor([_fingerprint_of(w) for _, _, _, w in items],
+                          dtype=torch.float32,
+                          device=mesh.device).reshape(-1, 2)
+        sharded = torch.tensor([SH.is_sharded(sp) for _, _, sp, _ in items],
+                               device=mesh.device)[:, None]
+        summed = SH.axis_sum(torch.where(sharded, fp, torch.zeros_like(fp)),
+                             mesh, "model")
+        whole = torch.where(sharded, summed, fp).tolist()
+        entries: Dict[str, PlanEntry] = {}
+        for (name, e, spec, w), (got, got_abs) in zip(items, whole):
+            if e.w_sum is not None:
+                scale = 1e-5 * ((abs(e.w_sum) if e.w_asum is None
+                                 else e.w_asum) + 1.0)
+                drift = abs(got - e.w_sum)
+                if e.w_asum is not None:
+                    drift = max(drift, abs(got_abs - e.w_asum))
+                if drift > scale:
+                    raise PlanStaleError(
+                        f"plan entry {name!r}: the shards of the leaf on "
+                        f"the mesh sum to {got:.6g}, the plan recorded "
+                        f"{e.w_sum:.6g}; rebuild the plan from these "
+                        "params")
+            if not SH.is_sharded(spec):
+                entries[name] = e
+                continue
+            if e.op.kind != "matmul":
+                raise NotImplementedError(
+                    f"plan entry {name!r}: a sharded {e.op.kind} entry is "
+                    "not executed yet (ROADMAP item 1.12)")
+            entries[name] = _shard_entry(e, spec, w, mesh)
+        meta = dict(self.meta)
+        meta["mesh"] = {"shape": dict(mesh.shape),
+                        "coords": dict(mesh.coords)}
+        return ProtectionPlan(entries=entries, meta=meta)
+
+
+def _leaf_path(params, name: str) -> str:
+    """The param-tree path of an entry's weight leaf (weight_leaf's)."""
+    node = params
+    for part in name.split("/"):
+        node = node[part]
+    return name + "/w" if isinstance(node, dict) else name
+
+
+def _shard_entry(e: PlanEntry, spec, w, mesh) -> PlanEntry:
+    """One matmul entry cut to this rank's shard `w` (the local GEMM
+    weight, with the stage axis leading when stacked)."""
+    from ..runtime import sharding as SH
+    st = e.stack
+    if e.w_view is not None:
+        # the tied head's (K, V, d) table under (None, model, None): its
+        # GEMM weight's columns are the local vocabulary
+        k_sh, m_sh = False, True
+    else:
+        inner = tuple(spec[st:]) + (None, None)
+        k_sh, m_sh = SH.is_sharded(inner[:1]), SH.is_sharded(inner[1:2])
+    k_loc, m_loc = int(w.shape[-2]), int(w.shape[-1])
+    r = mesh.index("model")
+    cb = e.wck.col_chunk if e.wck is not None else None
+    wck, wlc = e.wck, e.wlc
+    encode = (e.w_view is not None or e.wck is None
+              or (m_sh and m_loc % cb != 0))
+    if encode:
+        chunk = e.cfg.col_chunk
+        if st:
+            wck = stacked_weight_checksums_matmul(w, chunk)
+            wlc = stacked_weight_locators_matmul(w, chunk)
+        else:
+            wck = weight_checksums_matmul(w, chunk)
+            wlc = C.weight_locators_matmul(w, chunk)
+    else:
+        lead = (slice(None),) * st
+        if m_sh:
+            mb = m_loc // cb
+            rows = slice(r * mb, (r + 1) * mb)
+            wck = WeightChecksums(e.wck.cw1[lead + (rows,)],
+                                  e.wck.cw2[lead + (rows,)], cb)
+            if wlc is not None:
+                wlc = C.WeightLocators(*(np.ascontiguousarray(
+                    a[lead + (rows,)]) for a in wlc[:4]), wlc.cb)
+        if k_sh:
+            ks = slice(r * k_loc, (r + 1) * k_loc)
+            wck = WeightChecksums(wck.cw1[lead + (slice(None), ks)],
+                                  wck.cw2[lead + (slice(None), ks)], cb)
+            # the column locators sum over every row: encoded locally
+            wlc = (stacked_weight_locators_matmul(w, cb) if st
+                   else C.weight_locators_matmul(w, cb))
+        wck = WeightChecksums(wck.cw1.contiguous(), wck.cw2.contiguous(),
+                              wck.col_chunk)
+    ws, wa = _fingerprint_of(w)
+    return dataclasses.replace(e, wck=wck, wlc=wlc,
+                               w_shape=tuple(w.shape), w_sum=ws, w_asum=wa)
 
 
 # --------------------------------------------------------------------------

@@ -124,12 +124,18 @@ def scheme_histogram(corrected_by) -> dict:
 class ModelReport:
     """Per-layer fault verdicts of one model pass. The merged-scalar view
     (`detected` / `corrected_by` / `residual`) is the max over layers.
-    `mode` records the correction regime that produced the verdicts."""
+    `mode` records the correction regime that produced the verdicts.
+    `world_clean` is True where a deferred pass's one read showed no
+    flag on any rank of the ambient mesh (on this rank alone without
+    one), so every rank's verdict is clean; None where that is not
+    known."""
 
     def __init__(self, by_layer: Optional[Mapping[str, Any]] = None,
-                 mode: str = "per_layer"):
+                 mode: str = "per_layer",
+                 world_clean: Optional[bool] = None):
         self.by_layer: Dict[str, Any] = dict(by_layer or {})
         self.mode = mode
+        self.world_clean = world_clean
 
     def add(self, name: str, rep) -> "ModelReport":
         out = dict(self.by_layer)

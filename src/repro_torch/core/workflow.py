@@ -10,6 +10,14 @@ transfer per forward, which is why it exists. `HOST_READS` counts every
 such read, so tests and the chip run can pin both numbers;
 `RECOMPUTE_READS` counts those of them that autograd's recompute of a
 rematerialised stage made in the backward (models.transformer).
+
+Under a mesh (runtime.sharding.parallel_scope) every rank reads its own
+flags. A flag whose value decides which collectives run - the deferred
+forward's one read, which decides whether the corrective rerun runs - is
+max-reduced over the world first (`host_read_world`): a rank that reran
+while another did not would wait forever in the rerun's first collective.
+A flag local to one protected op (the ladder's rungs, which run no
+collective) stays local.
 """
 from __future__ import annotations
 
@@ -54,6 +62,20 @@ def host_read(flag):
     if flag.dim() == 0:
         return bool(flag.item())
     return flag.tolist()
+
+
+def host_read_world(flags: torch.Tensor) -> Tuple[list, bool]:
+    """(this rank's flags as a host list, whether any rank of the ambient
+    mesh has one set) in ONE device->host read, counted once: under a
+    mesh the flags are max-reduced over the world beside the local ones;
+    without one the two halves are the same flags."""
+    from ..runtime.sharding import axis_max, current_mesh
+    local = flags.reshape(-1)
+    mesh = current_mesh()
+    both = torch.cat([local, axis_max(local, mesh, "world")])
+    read = host_read(both)
+    n = local.numel()
+    return read[:n], any(read[n:])
 
 
 def run_ladder(o, detected, rungs: List[Rung], verify_fn: Callable,
@@ -148,13 +170,14 @@ class ProtectedModel:
                 "execution mode")
         names = list(evmap)
         if not names:
-            rep0 = T.ModelReport({}, mode="deferred")
+            rep0 = T.ModelReport({}, mode="deferred", world_clean=True)
             return ((out_d, rep0, out_d) if with_detect_out
                     else (out_d, rep0))
         deferred = [n for n in names if n not in inline]
         flags = {n: int(inline[n].detected) for n in inline}
+        any_deferred = False
         if deferred:
-            read = host_read(torch.stack(
+            read, any_deferred = host_read_world(torch.stack(
                 [evmap[n].flag.to(torch.int32).reshape(())
                  for n in deferred]))
             flags.update(zip(deferred, (int(f) for f in read)))
@@ -183,14 +206,19 @@ class ProtectedModel:
                     [repmap[n].residual for n in names])
 
         if deferred:
+            # every rank of a mesh reruns when any rank flagged (the
+            # rerun's collectives need them all); each trusts its own flags
             out, by, resid = run_deferred(
-                any(flags[n] for n in deferred), out_d, _corrective,
+                any_deferred, out_d, _corrective,
                 len(names), base_by=base_by, base_resid=base_resid)
         else:
             out, by, resid = out_d, base_by, base_resid
+        # inline members' ladder verdicts are this rank's own, outside the
+        # world read
         rep = T.ModelReport(
             {n: T.FaultReport(flags[n], by[i], resid[i])
-             for i, n in enumerate(names)}, mode="deferred")
+             for i, n in enumerate(names)}, mode="deferred",
+            world_clean=None if inline else not any_deferred)
         return (out, rep, out_d) if with_detect_out else (out, rep)
 
 

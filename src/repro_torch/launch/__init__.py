@@ -1,12 +1,12 @@
 """Launch entry points (twin of repro.launch): `serve` drives protected
 serving end to end, `train` the single-card fault-tolerant trainer over
-the step functions of `steps`. The mesh (`launch/mesh.py`) waits for
-ROADMAP item 1.12."""
+the step functions of `steps`, and `mesh`, the (data, model) mesh over
+torch.distributed ranks with `run_ranks` to start them."""
 import importlib
 
-from . import steps
+from . import mesh, steps
 
-__all__ = ["steps", "train"]
+__all__ = ["mesh", "steps", "train"]
 
 
 def __getattr__(name):

@@ -5,6 +5,13 @@ train_step supports microbatch gradient accumulation - the
 activation-memory knob - and emits the merged FaultReport so the FT
 runtime can apply verdict-driven retry. It is functional: the state it is
 given is left as it was, so a step can be recomputed from it.
+
+With `mesh_axes` = (data axes, model axis) the step runs on the ambient
+mesh (runtime.sharding.parallel_scope, whose specs place the params):
+the state is this rank's shards, each rank takes its data shard of every
+microbatch, the loss and the gradients are averaged over the data axes,
+the global norm sums the squares of sharded leaves over 'model' (each
+replicated leaf counted once) and AdamW updates the local shards.
 """
 from __future__ import annotations
 
@@ -13,31 +20,46 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, fp32_ieee
-from .._tree import tree_leaves, tree_map, tree_unflatten
+from .._tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                     tree_unflatten)
 from ..configs.base import ModelConfig
 from ..core import FaultReport
 from ..models import transformer as M
+from ..runtime import sharding as SH
 from ..optim import (OptConfig, apply_updates, clip_by_global_norm,
                      cosine_schedule, init_opt_state)
 
 F32 = torch.float32
 
 
-def _no_mesh(mesh_axes) -> None:
-    if mesh_axes is not None:
-        raise NotImplementedError(
-            "sharded training (mesh_axes) is not ported yet (ROADMAP item "
-            "1.12)")
-
-
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mesh_axes: Optional[Tuple] = None) -> torch.Tensor:
     """Mean NLL in fp32 (logsumexp minus the target logit); multi-codebook
-    labels average over codebooks."""
-    _no_mesh(mesh_axes)
+    labels average over codebooks.
+
+    With `mesh_axes` the logits may be vocab-sharded over the model axis
+    (the head's output under a mesh): the JAX package's iota == label
+    form, with the max, the sum of exponentials and the target logit each
+    reduced over 'model' (Megatron's vocab-parallel loss; the sums go
+    through the g of runtime.sharding, so each rank back-propagates into
+    its own slice). Off a mesh it is the same formula over one slice."""
     l32 = logits.to(F32)
-    lse = torch.logsumexp(l32, dim=-1)
-    tgt = torch.gather(l32, -1, labels[..., None].long())[..., 0]
+    if mesh_axes is None:
+        lse = torch.logsumexp(l32, dim=-1)
+        tgt = torch.gather(l32, -1, labels[..., None].long())[..., 0]
+        return torch.mean(lse - tgt)
+    mesh = SH.current_mesh()
+    v = l32.shape[-1]
+    m = SH.axis_max(torch.amax(l32, dim=-1).detach(), mesh, "model")
+    se = SH.reduce_from_model(torch.sum(torch.exp(l32 - m[..., None]),
+                                        dim=-1), mesh)
+    lse = m + torch.log(se)
+    v0 = v * (mesh.index("model") if mesh is not None else 0)
+    hit = (torch.arange(v, device=l32.device) + v0
+           == labels[..., None].long())
+    tgt = SH.reduce_from_model(
+        torch.sum(torch.where(hit, l32, torch.zeros_like(l32)), dim=-1),
+        mesh)
     return torch.mean(lse - tgt)
 
 
@@ -67,8 +89,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     precision when it runs, so a backward outside the scope would take
     TF32 products. Gradients are taken with torch.autograd.grad over
     fresh leaves that share the params' storage, so no `.grad` is left on
-    the caller's tensors."""
-    _no_mesh(mesh_axes)
+    the caller's tensors.
+
+    `mesh_axes` = (data axes, model axis), e.g. ("data", "model"): the
+    step runs on the ambient mesh (module docstring); the dense blocks
+    only, AdamW only."""
+    if mesh_axes is not None:
+        M.check_mesh_support(cfg)
+        if opt_cfg.kind != "adamw":
+            raise NotImplementedError(
+                f"{opt_cfg.kind} under a mesh: its factored moments and "
+                "update clipping reduce over sharded axes (ROADMAP item "
+                "1.12)")
     lr_fn = cosine_schedule(opt_cfg.lr, warmup, total_steps)
     acc_dtype = F32 if not grad_dtype else (
         getattr(torch, grad_dtype) if isinstance(grad_dtype, str)
@@ -76,7 +108,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     def loss_fn(params, tokens, labels):
         logits, rep, aux = M.forward_train(params, tokens, cfg)
-        loss = cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels, mesh_axes)
         if cfg.num_experts:
             loss = loss + 0.01 * aux
         return loss, rep
@@ -96,6 +128,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     def train_step(state, batch):
         tokens, labels = batch["tokens"], batch["labels"]
         params = state["params"]
+        mesh = None
+        if mesh_axes is not None:
+            mesh = SH.current_mesh()
+            if mesh is None:
+                raise RuntimeError(
+                    "make_train_step(mesh_axes=...): run the step inside "
+                    "runtime.sharding.parallel_scope(mesh, specs)")
+            tokens = _data_shard(tokens, mesh, microbatches)
+            labels = _data_shard(labels, mesh, microbatches)
         with torch.no_grad(), fp32_ieee():
             if microbatches > 1:
                 b = tokens.shape[0]
@@ -116,7 +157,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
             else:
                 loss, rep, grads = one_micro(params, tokens, labels)
 
-            grads, gnorm = clip_by_global_norm(grads, opt_cfg.grad_clip)
+            if mesh is not None:
+                n = SH.data_index(mesh)[1]
+                loss = _data_sum(loss, mesh) / n
+                grads = tree_map(lambda g: _data_sum(g, mesh) / n, grads)
+                rep = _world_report(rep, mesh)
+                grads, gnorm = _clip_sharded(grads, opt_cfg.grad_clip,
+                                             mesh)
+            else:
+                grads, gnorm = clip_by_global_norm(grads,
+                                                   opt_cfg.grad_clip)
             lr = lr_fn(state["step"])
             new_params, new_opt = apply_updates(params, grads, state["opt"],
                                                 opt_cfg, lr)
@@ -126,6 +176,55 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         return new_state, metrics
 
     return train_step
+
+
+def _data_sum(t, mesh):
+    for a in SH.data_axes(mesh):
+        t = SH.axis_sum(t, mesh, a)
+    return t
+
+
+def _data_shard(t, mesh, microbatches: int):
+    """This rank's rows of each microbatch: microbatch i holds rows
+    [i*mb, (i+1)*mb) of the batch, and its rows split into equal shards
+    over the data axes, as the JAX package's (microbatch, batch over data)
+    reshape lays them out."""
+    idx, n = SH.data_index(mesh)
+    if n == 1:
+        return t
+    b = t.shape[0]
+    if b % (n * microbatches):
+        raise ValueError(f"a batch of {b} does not split into "
+                         f"{microbatches} microbatches over {n} data ranks")
+    per = b // microbatches // n
+    t = t.reshape(microbatches, n * per, *t.shape[1:])
+    return t[:, idx * per:(idx + 1) * per].reshape(-1, *t.shape[2:])
+
+
+def _world_report(rep: FaultReport, mesh) -> FaultReport:
+    """The step's verdict as every rank sees it: each field's max over the
+    world, so a verdict-driven retry is taken by all ranks or none."""
+    f = torch.stack([torch.as_tensor(x, dtype=torch.int64).reshape(())
+                     .to(mesh.device) for x in rep])
+    return FaultReport(*SH.axis_max(f, mesh, "world").unbind())
+
+
+def _clip_sharded(grads, max_norm: float, mesh):
+    """clip_by_global_norm over a sharded tree: the squares of leaves
+    sharded over 'model' are summed over it, a replicated leaf (the same
+    on every model rank) is counted once."""
+    par = SH.current_parallel()
+    rep_sq = torch.zeros((), dtype=F32, device=mesh.device)
+    sh_sq = torch.zeros((), dtype=F32, device=mesh.device)
+    for path, g in tree_flatten_with_path(grads):
+        sq = torch.sum(torch.square(g.to(F32)))
+        if SH.is_sharded(par.specs.get(path, ())):
+            sh_sq = sh_sq + sq
+        else:
+            rep_sq = rep_sq + sq
+    gn = torch.sqrt(rep_sq + SH.axis_sum(sh_sq, mesh, "model"))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: g.to(F32) * scale, grads), gn
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

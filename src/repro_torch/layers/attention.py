@@ -6,7 +6,16 @@ The score x value core is plain PyTorch in fp32 (scores and softmax), as
 the JAX package's is jnp, computed in q-blocks so the live score buffer is
 (B, Hkv, G, q_block, S_kv). Decode attends one query row per slot against
 the cache (per-slot positions supported). The cache is updated in place:
-the model's forward hands each call a copy it owns."""
+the model's forward hands each call a copy it owns.
+
+Under a mesh (runtime.sharding.parallel_scope) the head counts are the
+local weights': wq/wk/wv column-sharded over 'model' give each rank its
+query heads and the KV heads they use, and wo's row-sharded partials are
+summed (layers.linear). Where wq shards and wk/wv replicate (the KV heads
+do not divide the axis: yi-9b-smoke's 2 on 4 ranks) every rank computes
+and caches every KV head and attends with the ones its query heads use;
+those replicated weights then enter through Megatron's f, since each rank
+back-propagates only its own heads' share of their gradient."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -15,6 +24,7 @@ import torch
 
 from ..core import FaultReport, ProtectConfig, merge_verdicts
 from ..core.protected import pick_chunk
+from ..runtime.sharding import copy_to_model, current_parallel
 from .linear import apply_dense, init_dense
 from .norms import rms_norm
 from .rotary import apply_rope, rope_tables
@@ -93,20 +103,44 @@ def apply_attention(
     cache_pos=None,                    # int, or (B,) tensor of positions
 ) -> Tuple[torch.Tensor, FaultReport, Optional[Dict]]:
     b, s, d = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    g = cfg.q_per_kv
+    hd = cfg.head_dim
+    # local head counts: the full ones off a mesh
+    hq = params["wq"]["w"].shape[-1] // hd
+    hkv = params["wk"]["w"].shape[-1] // hd
+    g = hq // hkv
+    par = current_parallel()
+    select = None
+    wk_p, wv_p, x_kv = params["wk"], params["wv"], x
+    q_norm, k_norm = params.get("q_norm"), params.get("k_norm")
+    if par is not None and par.tp > 1 and hq != cfg.num_heads:
+        mesh = par.mesh
+        if hkv == cfg.num_kv_heads:
+            g = cfg.q_per_kv
+            if hq % g and g % hq:
+                raise NotImplementedError(
+                    f"attention on {par.tp} model ranks: {hq} local query "
+                    f"heads do not tile groups of {g} (ROADMAP item 1.12)")
+            kv0 = mesh.index("model") * hq // g
+            select = (kv0, max(hq // g, 1))
+            g = hq // select[1]
+            x_kv = copy_to_model(x, mesh)
+            wk_p = {n: copy_to_model(t, mesh) for n, t in wk_p.items()}
+            wv_p = {n: copy_to_model(t, mesh) for n, t in wv_p.items()}
+        if cfg.qk_norm:
+            q_norm = copy_to_model(q_norm, mesh)
+            k_norm = copy_to_model(k_norm, mesh)
 
     q, r1 = apply_dense(params["wq"], x, abft, name="wq")
-    k, r2 = apply_dense(params["wk"], x, abft, name="wk")
-    v, r3 = apply_dense(params["wv"], x, abft, name="wv")
+    k, r2 = apply_dense(wk_p, x_kv, abft, name="wk")
+    v, r3 = apply_dense(wv_p, x_kv, abft, name="wv")
     rep = merge_verdicts(merge_verdicts(r1, r2), r3)
 
     q = q.reshape(b, s, hq, hd)
     k = k.reshape(b, s, hkv, hd)
     v = v.reshape(b, s, hkv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
 
     sin, cos = rope_tables(positions, hd, cfg.rope_theta)    # (B|1, S, hd/2)
     sin_b = torch.broadcast_to(sin, (b, s, hd // 2))
@@ -133,19 +167,28 @@ def apply_attention(
             ck[:, p0:p0 + s] = k.to(ck.dtype)
             cv[:, p0:p0 + s] = v.to(cv.dtype)
         kv_pos = torch.arange(ck.shape[1], device=x.device)
-        out = _attn_core(q.reshape(b, s, hkv, g, hd), ck, cv, positions,
+        ck, cv = _kv_heads(ck, select), _kv_heads(cv, select)
+        out = _attn_core(q.reshape(b, s, -1, g, hd), ck, cv, positions,
                          kv_pos, kind=kind, window=cfg.window_size,
                          chunk=cfg.attn_chunk, attn_cap=cfg.attn_softcap)
     else:
         kv_pos = positions[0] if positions.shape[0] == 1 else \
             torch.arange(s, device=x.device)
-        out = _attn_core(q.reshape(b, s, hkv, g, hd), k, v, positions,
+        out = _attn_core(q.reshape(b, s, -1, g, hd), _kv_heads(k, select),
+                         _kv_heads(v, select), positions,
                          kv_pos, kind=kind, window=cfg.window_size,
                          chunk=cfg.attn_chunk, attn_cap=cfg.attn_softcap)
 
     out = out.reshape(b, s, hq * hd)
     y, r4 = apply_dense(params["wo"], out, abft, name="wo")
     return y, merge_verdicts(rep, r4), cache
+
+
+def _kv_heads(t, select):
+    """The KV heads this rank's query heads use (all of them off a mesh)."""
+    if select is None:
+        return t
+    return t[:, :, select[0]:select[0] + select[1]]
 
 
 def init_cache(cfg, kind: str, batch: int, max_len: int,

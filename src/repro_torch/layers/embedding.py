@@ -7,7 +7,13 @@ GEMM weight is the transposed embedding table, read in place).
 MusicGen-style multi-codebook I/O: K embedding tables (K, V, d) summed on
 input for (B, S, K) tokens, and one head GEMM of width K·V on output whose
 logits come out as (B, S, K, V); the EnCodec frontend is a stub, as in the
-JAX package (tokens arrive precomputed)."""
+JAX package (tokens arrive precomputed).
+
+Under a mesh (runtime.sharding.parallel_scope) a (K, V, d) table under
+(None, "model", None) holds this rank's slice of the vocabulary: the
+lookup takes the tokens that fall in it, zeroes the rest and sums the
+ranks' rows over 'model' (exact: one rank contributes each row), and the
+head's logits stay vocab-sharded, (B, S, V / model)."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -17,6 +23,8 @@ import torch
 from ..core import (FaultReport, ProtectConfig, ambient_mode, path_scope,
                     protect_site, resolve_entry)
 from ..core.protected import matmul_raw
+from ..runtime.sharding import (copy_to_model, current_parallel,
+                                reduce_from_model)
 from .linear import apply_dense, init_dense
 
 F32 = torch.float32
@@ -41,6 +49,18 @@ def embed(params: Dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens: (B, S), or (B, S, K) for multi-codebook archs -> (B, S, d),
     the sum of the K codebook embeddings."""
     table = params["table"]
+    par = current_parallel()
+    if par is not None and table.shape[1] != cfg.vocab_size:
+        if cfg.num_codebooks:
+            raise NotImplementedError(
+                "multi-codebook embeddings under a mesh (ROADMAP item "
+                "1.12)")
+        v_loc = table.shape[1]
+        local = tokens - par.mesh.index("model") * v_loc
+        hit = (local >= 0) & (local < v_loc)
+        rows = table[0][torch.where(hit, local, torch.zeros_like(local))]
+        rows = rows * hit[..., None].to(rows.dtype)
+        return reduce_from_model(rows, par.mesh)
     if cfg.num_codebooks:
         # table[k][tokens[..., k]] for every k at once: (B, S, K, d)
         cb = torch.arange(cfg.num_codebooks, device=tokens.device)
@@ -57,7 +77,13 @@ def logits_head(params: Dict, x: torch.Tensor, cfg,
     nc = max(cfg.num_codebooks, 1)
     with path_scope("embed"):
         if cfg.tie_embeddings:
-            w = params["table"].reshape(nc * v, d).T       # (d, K·V), a view
+            table = params["table"]
+            par = current_parallel()
+            if par is not None and table.shape[1] != v:
+                # vocab-sharded: a column-parallel head over this rank's
+                # rows of the table
+                x = copy_to_model(x, par.mesh)
+            w = table.reshape(-1, d).T                     # (d, K·V), a view
             entry = resolve_entry("table")
             if (entry is not None or ambient_mode() is not None
                     or (abft is not None and abft.enabled)):
@@ -69,6 +95,7 @@ def logits_head(params: Dict, x: torch.Tensor, cfg,
         else:
             y, rep = apply_dense(params["head"], x, abft, name="head")
     y = y.to(F32)
+    v = y.shape[-1] // nc                     # the local vocabulary
     if cfg.num_codebooks:
         return y.reshape(b, s, nc, v), rep
     return y.reshape(b, s, v), rep

@@ -5,7 +5,16 @@ Call sites name themselves (`apply_dense(..., name="wq")`) inside the
 layer's `path_scope`: under an ambient plan context (a ProtectedModel run)
 the PlanEntry at the joined param-tree path supplies the offline config
 and precomputed weight checksums, and the ambient execution mode
-(detect_only / correct) decides what the call returns."""
+(detect_only / correct) decides what the call returns.
+
+Under a mesh (runtime.sharding.parallel_scope) the weight is this rank's
+shard, and the leaf's spec, found by the same path, says which collective
+the product needs: a column-sharded weight (output axis over 'model')
+leaves its output sharded, and its input enters through Megatron's f (the
+gradient summed over 'model' in the backward); a row-sharded one
+(contraction axis over 'model') protects this rank's partial product and
+sums the partials over 'model' in fp32, rounded once (Megatron's g). A
+replicated weight needs neither."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -14,7 +23,10 @@ import torch
 
 from ..core import (DEFAULT_CONFIG, FaultReport, ProtectConfig, ambient_mode,
                     protect_site, protected_matmul, resolve_entry)
+from ..core.plan import current_path
 from ..core.protected import matmul_raw
+from ..runtime.sharding import (copy_to_model, current_parallel, is_sharded,
+                                reduce_from_model)
 
 F32 = torch.float32
 
@@ -44,6 +56,22 @@ def apply_dense(params, x: torch.Tensor,
     entry at the current path + `name`, then the per-call cfg/wck path.
     Under an ambient "detect_only" mode the second return is a
     DetectEvidence carry instead of a FaultReport."""
+    par = current_parallel()
+    spec = par.spec(current_path(name) + "/w") if par is not None else ()
+    if par is not None and par.tp > 1 and spec:
+        w, b = params["w"], params.get("b")
+        if is_sharded(spec[-1:]):
+            x = copy_to_model(x, par.mesh)
+        if is_sharded(spec[:1]):
+            # the bias joins the sum once, on the first model rank
+            local = {"w": w} if (b is None or par.mesh.index("model")) \
+                else params
+            y, rep = _apply_local(local, x, cfg, wck, entry, name)
+            return reduce_from_model(y, par.mesh), rep
+    return _apply_local(params, x, cfg, wck, entry, name)
+
+
+def _apply_local(params, x, cfg, wck, entry, name):
     w = params["w"]
     b = params.get("b")
     if entry is None:

@@ -33,7 +33,8 @@ from ..core import (ModelReport, ProtectConfig, WeightChecksums,
                     ambient_mode, ambient_plan, as_fault_report,
                     clean_report, entry_overrides, merge_verdicts,
                     path_scope)
-from ..core.plan import capture_scope, repeat_scope, replay_scope
+from ..core.plan import (capture_scope, in_plan_scope, plan_scope,
+                         repeat_scope, replay_scope)
 from ..layers.attention import apply_attention, init_attention, init_cache
 from ..layers.embedding import embed, init_embedding, logits_head
 from ..layers.ffn import apply_ffn, init_ffn
@@ -41,6 +42,7 @@ from ..layers.moe import apply_moe, init_moe
 from ..layers.norms import rms_norm, softcap
 from ..layers.rglru import apply_rglru, init_rglru, init_rglru_state
 from ..layers.ssm import apply_ssm, init_ssm, init_ssm_state
+from ..runtime import sharding as SH
 
 F32 = torch.float32
 
@@ -177,7 +179,37 @@ def _init_block_cache(kind: str, cfg, batch: int, max_len: int, dt, device):
 
 
 def init_caches(cfg, batch: int, max_len: int,
-                device: DeviceLike = None) -> Dict:
+                device: DeviceLike = None, shard_batch: bool = False
+                ) -> Dict:
+    """Zero caches of `batch` rows. Under a mesh (parallel_scope) they
+    are this rank's: the KV heads over 'model' as cache_shardings places
+    them and, with `shard_batch`, the rows over the data axes (a
+    session's slots; a batch that does not divide them would take
+    context-parallel decode, ROADMAP item 1.12's later step, and
+    raises)."""
+    par = SH.current_parallel()
+    if par is not None:
+        with SH.parallel_as(None):
+            full = init_caches(cfg, batch, max_len, "meta")
+        mesh = par.mesh
+        specs = SH.cache_shardings(full, mesh, batch)
+        data = SH.data_axes(mesh)
+
+        if shard_batch and batch % mesh.axis_size(data):
+            raise NotImplementedError(
+                f"{batch} cache rows on a data axis of "
+                f"{mesh.axis_size(data)}: context-parallel decode is not "
+                "ported yet (ROADMAP item 1.12)")
+
+        def local(t, spec):
+            if not shard_batch:
+                spec = tuple(None if any(SH.is_sharded((n,), a)
+                                         for a in data) else n
+                             for n in spec)
+            return torch.zeros(SH.local_shape(spec, t.shape, mesh),
+                               dtype=t.dtype, device=resolve_device(device))
+
+        return tree_map(local, full, specs)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     pattern, reps, rem = cfg.stages()
@@ -334,6 +366,17 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     state, the ssm's and the rec's recurrences included.
     `remat` rematerialises each stage repeat on the uncached path under
     autograd (_rematerialised), as the JAX package's forward_train does."""
+    if SH.current_parallel() is not None and not in_plan_scope():
+        # under a mesh every layer finds its leaf's spec by its param-tree
+        # path, which is live only inside a plan context: an empty one
+        # changes nothing else
+        check_mesh_support(cfg)
+        with plan_scope():
+            return _forward(params, tokens, cfg, caches=caches,
+                            cache_pos=cache_pos, positions=positions,
+                            remat=remat)
+    if SH.current_parallel() is not None:
+        check_mesh_support(cfg)
     abft = abft_config(cfg)
     mode = ambient_mode()
     pattern, reps, rem = cfg.stages()
@@ -392,6 +435,24 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
     if cfg.logit_softcap:
         logits = softcap(logits, cfg.logit_softcap)
     return logits, ModelReport(sections), aux, caches
+
+
+def check_mesh_support(cfg) -> None:
+    """Raise for what the mesh does not run yet: the port shards the
+    dense blocks (attention and ffn) and single-codebook I/O; the moe,
+    ssm and rec families and multi-codebook models under a mesh are
+    ROADMAP item 1.12's later steps."""
+    pattern, _, rem = cfg.stages()
+    kinds = set(cfg.prefix_pattern) | set(pattern) | set(rem)
+    other = sorted(kinds - set(ATTN_KINDS) - {"ffn"})
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(other)} blocks under a mesh are not "
+            "ported yet (ROADMAP item 1.12)")
+    if cfg.num_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-codebook I/O under a mesh is not ported "
+            "yet (ROADMAP item 1.12)")
 
 
 def _positions(position, device):

@@ -1,6 +1,7 @@
 """Runtime fault tolerance (twin of repro.runtime): the plan-trusted
-at-rest weight audit, the step runner and the straggler monitor.
-Sharding and elastic re-planning are ROADMAP item 1.12."""
-from . import ft, straggler
+at-rest weight audit, the step runner, the straggler monitor and the
+sharding rules with their execution on a mesh. Elastic re-planning is
+ROADMAP item 1.12's later step."""
+from . import ft, sharding, straggler
 
-__all__ = ["ft", "straggler"]
+__all__ = ["ft", "sharding", "straggler"]

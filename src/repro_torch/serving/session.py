@@ -41,10 +41,29 @@ the next tokens left on the device) and a host half (`_host_decode`, then
 eviction). The session runs them back to back; serving.driver's
 ServingDriver runs the host half of step N after launching step N+1.
 
-Not ported yet, and refused: `mesh=` (ROADMAP item 1.12).
+With `mesh=` (a launch.mesh.Mesh; the dense blocks only) the session is
+one of the mesh's ranks, and every rank runs it on the same submissions:
+- the params are cut to this rank's shards by runtime.sharding's rules
+  (and what `restore_fn` returns, likewise), the plan by
+  ProtectionPlan.shard, and every forward runs in the mesh's
+  parallel_scope;
+- the slots split over the data axes, the KV heads over 'model'. A
+  decode step runs this data rank's slots; its next tokens, its
+  localizer's hits and the verdict are gathered (the verdict max-reduced)
+  over the world, so every rank's scheduler sees every slot;
+- a prefill runs on every data rank and only the slot's owner writes it
+  into its caches, as GSPMD runs a batch of 1 that 'data' does not
+  divide;
+- the deferred workflow's one read is max-reduced over the world
+  (core.workflow.host_read_world), so every rank reruns together;
+- an audit checks this rank's shards against its local plan, repairs a
+  damaged block in place on its rank, and the verdict is reduced.
+Context-parallel decode (slots that do not divide the data axes) and the
+other block families under a mesh are ROADMAP item 1.12's later steps.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -54,6 +73,8 @@ import torch
 from .._device import DeviceLike, fp32_ieee, resolve_device
 from ..core import ProtectedModel, as_fault_report
 from ..models import transformer as M
+from ..launch.mesh import Mesh
+from ..runtime import sharding as SH
 from ..runtime.ft import PlanAuditor
 from .scheduler import SlotScheduler
 from .stats import RequestRecord, ServingStats
@@ -92,15 +113,38 @@ class ProtectedSession:
                  mesh=None, audit_every: int = 0, restore_fn=None,
                  slot_tol: float = 1e-3, bucket_floor: int = 8,
                  device: DeviceLike = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ProtectedSession(mesh=...) is not ported yet (ROADMAP "
-                "item 1.12)")
         if correction == "auto":
             correction = "deferred" if plan is not None else "per_layer"
         if correction == "deferred" and plan is None:
             raise ValueError("ProtectedSession: correction='deferred' "
                              "needs a ProtectionPlan")
+        self.mesh = mesh
+        self._specs = None
+        self._slot0, self._local_slots = 0, slots
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError("ProtectedSession(mesh=...) takes a "
+                                "launch.mesh.Mesh; got "
+                                f"{type(mesh).__name__}")
+            M.check_mesh_support(cfg)
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"the mesh's ranks run on {mesh.device}, "
+                                 f"not {device}")
+            device = mesh.device
+            # slots that do not divide the data axes: init_caches raises
+            di, n_data = SH.data_index(mesh)
+            self._local_slots = slots // n_data
+            self._slot0 = di * self._local_slots
+            self._specs = SH.param_shardings(params, mesh, cfg)
+            params = SH.shard_tree(params, self._specs, mesh)
+            if plan is not None:
+                plan = plan.shard(mesh, cfg, params=params,
+                                  specs=self._specs)
+            if restore_fn is not None:
+                user_restore = restore_fn
+
+                def restore_fn():
+                    return SH.shard_tree(user_restore(), self._specs, mesh)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -121,7 +165,9 @@ class ProtectedSession:
         self.auditor = PlanAuditor(plan, restore_fn=restore_fn,
                                    params_fn=lambda s: s,
                                    stats=self.stats.counters)
-        self._caches = M.init_caches(cfg, slots, max_len, self.device)
+        with self._scope():
+            self._caches = M.init_caches(cfg, slots, max_len, self.device,
+                                         shard_batch=True)
         k = cfg.num_codebooks
         self._h_tokens = np.zeros((slots, 1, k) if k else (slots, 1),
                                   np.int64)
@@ -136,6 +182,48 @@ class ProtectedSession:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
+    # -- the mesh ------------------------------------------------------------
+    def _scope(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return SH.parallel_scope(self.mesh, self._specs)
+
+    def _world_stats(self, rep) -> np.ndarray:
+        """The (detected, corrected_by, residual) verdict as host ints,
+        max-reduced over the mesh's world. A deferred pass whose one read
+        (already max-reduced over the world) showed no flag is clean on
+        every rank, so only a pass that flagged, or a per_layer pass,
+        reduces its verdict here."""
+        fr = as_fault_report(rep)
+        if self.mesh is None:
+            return _host_ints(fr.detected, fr.corrected_by, fr.residual)
+        if getattr(rep, "world_clean", None):
+            return np.zeros(3, np.int64)
+        t = torch.stack([torch.as_tensor(v, device=self.device).reshape(())
+                         .to(torch.int64) for v in (
+                             fr.detected, fr.corrected_by, fr.residual)])
+        return SH.axis_max(t, self.mesh, "world").cpu().numpy()
+
+    def _argmax(self, logits):
+        """Greedy tokens of (vocab-sharded, under a mesh) logits: the
+        first index of the global max, as torch.argmax picks it. Each
+        rank reduces its own (max, first index) pair over 'model' in one
+        int64 key: the fp32 max's bits in an order-preserving form above
+        the complement of its global index, so the max key is the max
+        logit and, among equal ones, the lowest index."""
+        mesh = self.mesh
+        if mesh is None or mesh.axis_size("model") == 1:
+            return torch.argmax(logits, dim=-1)
+        v = logits.to(F32)
+        idx = torch.argmax(v, dim=-1, keepdim=True)
+        bits = torch.gather(v, -1, idx).view(torch.int32).to(torch.int64)
+        # negative floats: flip the magnitude bits so larger sorts higher
+        bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+        gidx = idx + mesh.index("model") * v.shape[-1]
+        key = bits * 2 ** 32 + (2 ** 32 - 1 - gidx)
+        key = SH.axis_max(key, mesh, "model")
+        return (2 ** 32 - 1 - (key & (2 ** 32 - 1)))[..., 0]
+
     # -- the device pieces ---------------------------------------------------
     def _step_fn(self, tokens, positions) -> Dict:
         """Device half of one decode step over all slots: the next tokens
@@ -143,15 +231,21 @@ class ProtectedSession:
         next step as they are), the caches, the localizer's per-slot hit
         vector (on the device; None when nothing was detected) and the
         (detected, corrected_by, residual) verdict as host ints (the
-        deferred workflow reads its flags inside the forward)."""
+        deferred workflow reads its flags inside the forward). Under a
+        mesh it runs this data rank's slots, and the tokens and hits come
+        back gathered over the world."""
         hit = None
-        with torch.no_grad(), fp32_ieee():
+        mesh = self.mesh
+        if mesh is not None:
+            rows = slice(self._slot0, self._slot0 + self._local_slots)
+            tokens, positions = tokens[rows], positions[rows]
+        with torch.no_grad(), fp32_ieee(), self._scope():
             if self.correction == "deferred":
                 (logits, caches), rep, (logits_d, _) = self._decode_pm(
                     self.params, tokens, self._caches, positions,
                     correction="deferred", with_detect_out=True)
-                fr = as_fault_report(rep)
-                if int(fr.detected):
+                stats = self._world_stats(rep)
+                if int(stats[0]):
                     # the corrective rerun ran: only rows the ladder
                     # touched move, so the rows that differ localize the
                     # fault to its slot (a clean path differs by 0)
@@ -159,18 +253,32 @@ class ProtectedSession:
                     l32 = logits.to(F32).reshape(b, -1)
                     d32 = logits_d.to(F32).reshape(b, -1)
                     diff = torch.amax(torch.abs(l32 - d32), dim=-1)
-                    hit = (diff > self.slot_tol
-                           * (torch.amax(torch.abs(d32)) + 1.0)
+                    scale = torch.amax(torch.abs(d32)).reshape(1)
+                    if mesh is not None:
+                        both = SH.axis_max(torch.cat([diff, scale]), mesh,
+                                           "model")
+                        diff, scale = both[:-1], both[-1:]
+                    hit = (diff > self.slot_tol * (scale + 1.0)
                            ).to(torch.int64)
             else:
                 (logits, caches), rep = self._decode_pm(
                     self.params, tokens, self._caches, positions,
                     correction=self.correction)
-                fr = as_fault_report(rep)
-            nxt = torch.argmax(logits, dim=-1)
-        return {"next": nxt, "caches": caches, "hit": hit,
-                "stats": _host_ints(fr.detected, fr.corrected_by,
-                                    fr.residual)}
+                stats = self._world_stats(rep)
+            nxt = self._argmax(logits)
+            if mesh is not None:
+                # one gather over the world carries the tokens and the hits
+                b = nxt.shape[0]
+                cols = [nxt.reshape(b, -1).to(torch.int64)]
+                if hit is not None:
+                    cols.append(hit[:, None])
+                both = torch.cat(cols, dim=1)
+                for a in SH.data_axes(mesh):
+                    both = SH.axis_gather(both, mesh, a, 0)
+                nxt = both[:, :nxt[0].numel()].reshape(-1, *nxt.shape[1:])
+                if hit is not None:
+                    hit = both[:, -1]
+        return {"next": nxt, "caches": caches, "hit": hit, "stats": stats}
 
     def _host_decode(self, out: Dict) -> Tuple[np.ndarray, np.ndarray]:
         """Host half of one decode step's outputs: the next tokens and the
@@ -181,14 +289,12 @@ class ProtectedSession:
         return nxt, hit
 
     def _prefill_fn(self, tokens, last: int) -> Dict:
-        with torch.no_grad(), fp32_ieee():
+        with torch.no_grad(), fp32_ieee(), self._scope():
             (li, caches), rep = self._prefill_pm(self.params, tokens, last,
                                                  correction=self.correction)
-            fr = as_fault_report(rep)
-            nxt = torch.argmax(li, dim=-1)
-        return {"next": nxt, "caches": caches,
-                "stats": _host_ints(fr.detected, fr.corrected_by,
-                                    fr.residual)}
+            stats = self._world_stats(rep)
+            nxt = self._argmax(li)
+        return {"next": nxt, "caches": caches, "stats": stats}
 
     def _insert(self, small: Dict, slot: int, big: Optional[Dict] = None,
                 stacked: bool = False) -> None:
@@ -292,7 +398,9 @@ class ProtectedSession:
         rec.admitted_at = self._now()
         out = self._prefill_fn(torch.as_tensor(buf, device=self.device),
                                req.prompt_len - 1)
-        self._insert(out["caches"], slot)
+        local = slot - self._slot0
+        if 0 <= local < self._local_slots:      # this data rank's slot
+            self._insert(out["caches"], local)
         self.stats.counters["prefills"] += 1
         return out
 
@@ -328,7 +436,13 @@ class ProtectedSession:
         active request's ledger. Returns the verdict."""
         self.params = self.auditor.audit_or_restore(self.params)
         verdict = self.auditor.last_verdict
-        if verdict == "repaired":
+        if self.mesh is not None:
+            # each rank audits (and repairs) its own shards; the session's
+            # verdict is the worst of them
+            order = ("clean", "repaired", "restored")
+            code = torch.tensor([order.index(verdict)], device=self.device)
+            verdict = order[int(SH.axis_max(code, self.mesh, "world")[0])]
+        if self.auditor.last_repair_s is not None:
             # single-block weight corruption was solved in place
             # mid-session: record the repair time and keep serving
             # without dropping a request

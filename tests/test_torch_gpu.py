@@ -1490,3 +1490,27 @@ def test_corrected_stage_fault_under_remat_on_card(cuda_device, arch):
             assert float((x.float() - y.float()).abs().max()) <= 2e-3, n
     else:
         assert not _states_equal(new, clean)
+
+
+# --------------------------------------------------------------------------
+# the (data, model) mesh on the card
+# --------------------------------------------------------------------------
+
+def test_two_rank_mesh_serves_on_the_card(cuda_device):
+    """A (1, 2) gloo mesh of two ranks sharing the card serves
+    yi-9b-smoke in bf16 with the kernels pinned: every rank's detect
+    kernel launches on its local shards (15 sites a forward: 7 in each of
+    2 repeats and the head's vocabulary half), one read per forward, and
+    both ranks serve the unsharded session's tokens."""
+    import torch_mesh_ranks as R
+    from repro_torch.launch.mesh import run_ranks
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (5, 8, 6, 11, 4, 9)]
+    ranks = run_ranks(R.session_rank, 2, "gloo", 300,
+                      (1, 2, "gloo", "cuda", None, prompts, None,
+                       "bfloat16", True, False))
+    for res in ranks:
+        assert res["tokens"] == res["tokens_ref"]
+        assert res["detect_launches"] == 15 * res["forwards"] > 0
+        assert res["reads_per_forward"] == 1.0
+        assert res["faults_clean"] == 0

@@ -255,8 +255,11 @@ def test_session_decode_fault_localized_to_slot(served, kernels):
 
 
 def test_session_refuses_what_is_not_ported(served):
+    """A mesh that is not a launch.mesh.Mesh is refused (the sharded
+    session itself: tests/test_torch_distributed.py); so is a deferred
+    session without a plan."""
     cfg, _, params, plan = served
-    with pytest.raises(NotImplementedError, match="1.12"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         ProtectedSession(params, cfg, plan, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="needs a ProtectionPlan"):
         ProtectedSession(params, cfg, None, correction="deferred",

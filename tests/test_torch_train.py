@@ -276,9 +276,11 @@ def test_cross_entropy_matches_jax():
         got = TS.cross_entropy(torch.as_tensor(lg), torch.as_tensor(lb))
         want = JS.cross_entropy(jnp.asarray(lg), jnp.asarray(lb))
         assert_close(got, want, 1e-6, 0.0, "cross_entropy")
-    with pytest.raises(NotImplementedError, match="1.12"):
-        TS.cross_entropy(torch.as_tensor(logits), torch.as_tensor(labels),
-                         mesh_axes=("data", "model"))
+        # the vocab-parallel form (iota == label, each reduction over
+        # 'model'), here outside a mesh: one slice holds the vocabulary
+        got = TS.cross_entropy(torch.as_tensor(lg), torch.as_tensor(lb),
+                               mesh_axes=("data", "model"))
+        assert_close(got, want, 1e-6, 0.0, "cross_entropy(mesh_axes)")
 
 
 # --------------------------------------------------------------------------
