@@ -168,11 +168,11 @@ Phases, each fatal on failure:
      per forward; the prefill drill at one repeat's attn_swa wk (the
      KV-cache write), the decode drill at one repeat's rec in_x (it feeds
      both the conv tail and h);
-  14. MusicGen-large at full width and 6 of its 48 layers in bf16
+  14. MusicGen-large at full width and 3 of its 48 layers in bf16
      (attention and gelu FFN, 4 codebooks of 2048 tokens summed on input,
      the untied 2048 x 8192 head; random params drawn on the card from a
      seed), served as phase 12 with prompts of (16-128, 4) tokens and
-     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 43
+     K-list tokens out (its sessions timed in LATE_TIMED_ROUNDS rounds): 22
      launches and reads per forward, every
      codebook's served token teacher-forced within the bounds of phase
      12; the prefill drill at one repeat's attention wk, the decode drill
@@ -214,9 +214,9 @@ Phases, each fatal on failure:
      under 70 GiB;
   16. training through the ssm, rec and moe blocks at full width, bf16
      params, remat on, warmup 1, lr 1e-3 (1e-4 for Kimi-K2), 6 steps
-     over three cycled batches (train_cell): Mamba2-1.3B at full depth
-     (48 layers, 1.45 G params) with AdamW, batch 8 x 256 in 2
-     microbatches; RecurrentGemma-2B at 6 of 26 layers the same;
+     over three cycled batches (train_cell): Mamba2-1.3B at 16 of its 48
+     layers with AdamW, batch 8 x 256 in 2 microbatches;
+     RecurrentGemma-2B at 3 of 26 layers the same;
      Kimi-K2 at 2 of 61 layers with 64 of its 384 experts and Adafactor,
      batch 4 x 128: every report clean, the loss falling, no kernel
      launched; one step's new params bitwise its abft=False twin's; +1e4
@@ -233,14 +233,19 @@ Phases, each fatal on failure:
      shard, the row-parallel wo and down halves, gate/up's 5504 columns
      in 688-wide chunks, the head's 32,000 vocabulary columns) at 8 and
      128 rows, checked as 3c;
-  17. (after 3h, before 4) the (data, model) mesh: Yi-9B at full width
+  3i. (after 3h) both bf16 kernels at one rank's local GEMMs of the ssm
+     and rec blocks on model 2 (Mamba2-1.3B's in_proj 2048 x 4256 and
+     out_proj 2048 x 2048, RecurrentGemma-2B's gate_a 2560 x 1280, the
+     shape of in_x, in_gate, gate_i and wq too) at 8 and 128 rows,
+     checked and timed as 3c;
+  17. (after 3i, before 4) the (data, model) mesh: Yi-9B at full width
      (d 4096, 32 query heads on 4 KV heads of 128, d_ff 11008, untied
      64,000 head, bf16) on a (2, 2) mesh of four ranks, child processes
      that share the card through gloo on CUDA tensors (launch.mesh
-     .run_ranks; no number of it is a multi-card speed). 17a serves 8 of
+     .run_ranks; no number of it is a multi-card speed). 17a serves 4 of
      its 48 layers (params drawn on the card from a seed, each rank
      keeping its shard; the plan sharded by ProtectionPlan.shard) with
-     phase 6's traffic, deferred, the kernels pinned: 57 detect launches
+     phase 6's traffic, deferred, the kernels pinned: 29 detect launches
      and 1 host read per forward per rank, per_layer's same tokens, the
      served tokens within DELTA of the unsharded unprotected forward's
      top, +1e3 at rank 1's row-parallel wo partial detected, corrected
@@ -257,7 +262,31 @@ Phases, each fatal on failure:
      under MESH_PEAK_GIB. 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's
      widths in bf16 bitwise the unsharded session (tokens, counters,
      launches, logits; the mesh's collectives are no-ops on axes of one
-     rank, so it checks NCCL's set-up, plus one all_reduce by hand).
+     rank, so it checks NCCL's set-up, plus one all_reduce by hand), in
+     the process that then runs the unsharded training references;
+  18. (in 17's ranks, after 17a/b) the ssm and rec families and
+     context-parallel decode on the same mesh. 18a serves RecurrentGemma-
+     2B at full width (d 2560, 10 query heads on 1 KV head of 256, lru
+     width 2560, d_ff 7680, window 2048, the tied 256,000 head scaled as
+     phase 13's, bf16) at 6 of its 26 layers with phase 6's traffic,
+     deferred, the kernels pinned: 47 detect launches and 1 read per
+     forward per rank, per_layer's same tokens, +1e3 at rank 1's gate_a
+     row and at its wo partial corrected at slot 3 only with the clean
+     tokens, the bf16 tokens within twice the routes' gap plus DELTA of
+     the unsharded unprotected top and a float32 twin served on the mesh
+     within DELTA. 18b decodes one 2,600-token prompt with 32 new tokens
+     on 1 slot of 4,096 positions: the slots do not divide the data
+     axis, so each data rank holds its (1, 2048, 1, 256) block of every
+     KV cache, writes only its own positions and merges its softmax
+     partials over 'data'; 47 launches and 1 read per forward, the
+     tokens' teacher-forced margin within DELTA of the unsharded
+     session's on the same prompt, the decode step against the
+     unsharded one. 18c serves Mamba2-1.3B at full width (d 2048, state
+     128, 64 heads of 64) at 4 of 48 layers, as 18a with a drill at rank
+     1's in_proj shard. 18d trains RecurrentGemma-2B at 3 layers and
+     Mamba2-1.3B at 2 as 17b trains Yi-9B (each cell its loss limit,
+     both controls caught). The card's memory in use stays under
+     MESH_PEAK_GIB through 17 and 18.
 It then prints the card's name and power limit, one {"kernels": [...]}
 line, and as the last line {"ok": true, "device": {...}}. `--json PATH`
 also writes the run's details (per-shape kernel times, per-layer scores,
@@ -311,8 +340,8 @@ CAMPAIGN_LIMIT_S = 600
 # from 3 and 5 so that the run with phase 11 stays within its time on a
 # card whose host is slow (PERF.md §6)
 TIMED_ROUNDS = 2
-# the same for the timed sessions of phases 14 and 15, cut to one round to
-# keep the whole run near 600 s with phase 15 in it
+# the same for the timed sessions of phases 12-15, cut to one round to
+# keep the whole run near 600 s with phases 15 and 18 in it
 LATE_TIMED_ROUNDS = 1
 FAULTED_REPS = 3
 # card vs CPU, the campaign's 64 trials per arm and layer: the share of
@@ -392,11 +421,11 @@ MUSICGEN_SITES = (("wq/wk/wv/wo", 2048, 2048, False, 192),
                   ("down", 8192, 2048, False, 48),
                   ("head", 2048, 8192, False, 1))
 MUSICGEN_ROWS = SERVE_ROWS
-# depth of phase 14's MusicGen-large: its first 6 layers at full width
-# (cut from 48 to 24, then to 12 to make room for phase 16, then to 6 for
-# phase 17, keeping the whole run near ten minutes); phase 3e keeps the
-# full-depth counts
-MUSICGEN_LAYERS = 6
+# depth of phase 14's MusicGen-large: its first 3 layers at full width
+# (cut from 48 to 24, then to 12 to make room for phase 16, to 6 for
+# phase 17 and to 3 for phase 18, keeping the whole run near ten
+# minutes); phase 3e keeps the full-depth counts
+MUSICGEN_LAYERS = 3
 # the MoE slice: Kimi-K2 at full width and 2 of its 61 layers (the dense
 # prefix layer, then one repeat of attention and a moe block of 384
 # experts, top-8, and a shared expert), bf16, served as phase 6 serves
@@ -428,7 +457,7 @@ MOE_ROWS = (1, 2, 3)
 MOE_TIMED_ROWS = (1, 3)
 # phase 16: training through the ssm, rec and moe blocks, bf16 params,
 # remat on, warmup 1, lr TRAIN_LR, TRAIN16_STEPS steps over three cycled
-# batches. 16a Mamba2-1.3B at full width and depth, AdamW, batch
+# batches. 16a Mamba2-1.3B at full width and MAMBA_TRAIN_LAYERS, AdamW, batch
 # TRAIN_BATCH x TRAIN_SEQ in TRAIN_MB microbatches (remat on and off held
 # bitwise at REMAT_CHECK_LAYERS layers); 16b RecurrentGemma-2B at full
 # width and RG_TRAIN_LAYERS layers, as 16a; 16c Kimi-K2 at full width,
@@ -437,7 +466,10 @@ MOE_TIMED_ROWS = (1, 3)
 # MOE_TRAIN_BATCH x MOE_TRAIN_SEQ in one microbatch
 TRAIN16_STEPS = 6
 REMAT_CHECK_LAYERS = 4
-RG_TRAIN_LAYERS = 6                    # two repeats of its pattern
+RG_TRAIN_LAYERS = 3                    # one repeat of its pattern
+# 16a's depth: cut from 48 to 16 (and 16b from 6 to 3, phase 14 from 6 to
+# 3 layers, phases 12 and 13 to one timed round) to make room for phase 18
+MAMBA_TRAIN_LAYERS = 16
 MOE_TRAIN_EXPERTS = 64
 MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 128
 # 16c's learning rate: at 1e-3 the first Adafactor steps (about sign(g)
@@ -454,7 +486,7 @@ TRAIN16_PEAK_GIB = 70.0
 # a (1, 1) NCCL mesh
 YI_ARCH = "yi-9b"
 YI_MESH = (2, 2)
-YI_LAYERS = 8
+YI_LAYERS = 4                  # cut from 8 to make room for phase 18
 YI_TRAIN_LAYERS = 2
 YI_TRAIN_BATCH, YI_TRAIN_SEQ, YI_TRAIN_MB = 8, 256, 2
 YI_TRAIN_STEPS = 3
@@ -466,7 +498,7 @@ YI_TRAIN_TOL = 2e-2            # the JAX package's sharded-step tolerance
 # update within YI_UPDATE_TOL of the unsharded update (Frobenius, relative)
 YI_LOSS_TOL = 2.5e-3
 YI_UPDATE_TOL = 0.4
-MESH_TIMEOUT_S = 600
+MESH_TIMEOUT_S = 900
 # the card's memory in use by every process during 17a/b, the unsharded
 # reference apart: four ranks' training at ~12.2 GiB allocated each
 # (AdamW's fp32 moments are held whole on both data ranks, twice while
@@ -486,6 +518,39 @@ YI_SHARD_SITES = (("wq", 4096, 2048, False, YI_LAYERS),
                   ("down", 5504, 4096, False, YI_LAYERS),
                   ("head", 4096, 32000, False, 1))
 YI_SHARD_ROWS = (8, 128)
+# phase 18: the ssm and rec families and context-parallel decode on the
+# same (2, 2) mesh, in the ranks of phase 17. 18a serves RecurrentGemma-2B
+# at full width (d 2560, 10 query heads on 1 KV head of 256, lru width
+# 2560, d_ff 7680, window 2048, the tied 256,000 head scaled by
+# RG_TABLE_SCALE, bf16) at RG_MESH_LAYERS of its 26 layers with phase 6's
+# traffic; 18b decodes one CP_PROMPT-token prompt with CP_GEN new tokens
+# on 1 slot of CP_MAX_LEN positions, context-parallel (each data rank
+# holds 2048 of them, so every decode window crosses the boundary); 18c
+# serves Mamba2-1.3B (d 2048, state 128, 64 heads of 64) at
+# MAMBA_MESH_LAYERS of its 48 layers; 18d trains both as 17b trains Yi-9B
+RG_MESH_LAYERS = 6
+MAMBA_MESH_LAYERS = 4
+CP_MAX_LEN, CP_PROMPT, CP_GEN = 4096, 2600, 32
+# (name, arch, layers, drill site, loss limit): RecurrentGemma-2B's loss
+# at the drawn tied table is ~20-31, and its sound loss gap read up to
+# 1.9e-3 in the first run (PR 25), its half-batch control 2.9e-3 at step
+# 0 and 0.075-2.2 after: its limit sits at 2.6x the sound reading, under
+# every control's largest; Mamba2-1.3B's read 1.35e-3 sound, 5.4e-3 and
+# more for the controls, so 17b's limit holds it
+REC_TRAIN_CELLS = (("rg", RG_ARCH, 3, "stages/b0_rec/rec/in_x", 5e-3),
+                   ("mamba", MAMBA_ARCH, 2, "stages/b0_ssm/ssm/in_proj",
+                    YI_LOSS_TOL))
+# phase 3i: one rank's local GEMMs of the ssm and rec blocks at model 2
+# (label, K, M, W read transposed, launches per forward at phase 18's
+# depths): Mamba2-1.3B's in_proj (4256 of its 8512 columns) and out_proj
+# (2048 of its 4096 rows), RecurrentGemma-2B's gate_a (1280 of 2560
+# columns, the whole conv output in; in_x, in_gate, gate_i and wq's 5
+# heads of 256 take the same shape)
+REC_SHARD_SITES = (("ssm/in_proj", 2048, 4256, False, MAMBA_MESH_LAYERS),
+                   ("ssm/out_proj", 2048, 2048, False, MAMBA_MESH_LAYERS),
+                   ("rec/gate_a (in_x, in_gate, gate_i, wq)", 2560, 1280,
+                    False, 4 * 2 * RG_MESH_LAYERS // 3 + RG_MESH_LAYERS // 3))
+REC_SHARD_ROWS = (8, 128)
 
 
 def log(*a):
@@ -3409,7 +3474,7 @@ def run_mamba_serving(report) -> dict:
     return run_recurrent_serving(
         report, "mamba_serving", MAMBA_ARCH, MAMBA_LAYERS,
         2 * MAMBA_LAYERS + 1, "stages/b0_ssm/ssm/in_proj",
-        "stages/b0_ssm/ssm/out_proj")
+        "stages/b0_ssm/ssm/out_proj", rounds=LATE_TIMED_ROUNDS)
 
 
 def run_rg_serving(report) -> dict:
@@ -3423,7 +3488,7 @@ def run_rg_serving(report) -> dict:
     return run_recurrent_serving(
         report, "rg_serving", RG_ARCH, RG_LAYERS, 23 * RG_LAYERS // 3 + 1,
         "stages/b4_attn_swa/attn/wk", "stages/b0_rec/rec/in_x",
-        RG_TABLE_SCALE)
+        RG_TABLE_SCALE, rounds=LATE_TIMED_ROUNDS)
 
 
 def run_musicgen_serving(report) -> dict:
@@ -4501,7 +4566,7 @@ def train_cell(key: str, cfg, opt, batch: int, seq: int, mb: int, drills,
 
 def run_block_training(report) -> dict:
     """Phase 16: training through the ssm, rec and moe blocks at full
-    width (train_cell): 16a Mamba2-1.3B at full depth with its drill at
+    width (train_cell): 16a Mamba2-1.3B at MAMBA_TRAIN_LAYERS with its drill at
     one repeat's in_proj; 16b RecurrentGemma-2B at RG_TRAIN_LAYERS
     layers, its drill at one repeat's rec in_x; 16c Kimi-K2 at MOE_LAYERS layers with
     MOE_TRAIN_EXPERTS experts and Adafactor, its drills at the fp32 router
@@ -4519,9 +4584,9 @@ def run_block_training(report) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     res = {}
-    cfg = configs.get(MAMBA_ARCH)
+    cfg = configs.get(MAMBA_ARCH).replace(num_layers=MAMBA_TRAIN_LAYERS)
     reps = cfg.stages()[1]
-    log("phase 16a: Mamba2-1.3B, full depth")
+    log(f"phase 16a: Mamba2-1.3B, {MAMBA_TRAIN_LAYERS} of 48 layers")
     res["mamba"] = train_cell(
         "16a", cfg, OptConfig(lr=TRAIN_LR), TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB,
         [("in_proj", "stages/b0_ssm/ssm/in_proj", reps // 2)],
@@ -4530,7 +4595,7 @@ def run_block_training(report) -> dict:
     res["rg"] = train_cell(
         "16b", configs.get(RG_ARCH).replace(num_layers=RG_TRAIN_LAYERS),
         OptConfig(lr=TRAIN_LR), TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB,
-        [("in_x", "stages/b0_rec/rec/in_x", 1)])
+        [("in_x", "stages/b0_rec/rec/in_x", RG_TRAIN_LAYERS // 3 // 2)])
     log(f"phase 16c: Kimi-K2, {MOE_LAYERS} of 61 layers, {MOE_TRAIN_EXPERTS}"
         " of 384 experts")
     res["kimi"] = train_cell(
@@ -4552,10 +4617,18 @@ def run_block_training(report) -> dict:
 
 def check_yi_shard_kernels(gen, report):
     """Phase 3h: both bf16 kernels at one rank's local GEMM shapes of
-    Yi-9B on model 2 (phase 17a's 57 detect launches per forward), at a
+    Yi-9B on model 2 (phase 17a's 29 detect launches per forward), at a
     decode step's 8 rows and 128."""
     return check_model_kernels(gen, report, "yi_shard_kernels",
                                YI_SHARD_SITES, YI_SHARD_ROWS)
+
+
+def check_rec_shard_kernels(gen, report):
+    """Phase 3i: both bf16 kernels at one rank's local GEMM shapes of the
+    ssm and rec blocks on model 2 (phase 18's), at a decode step's 8 rows
+    and 128."""
+    return check_model_kernels(gen, report, "rec_shard_kernels",
+                               REC_SHARD_SITES, REC_SHARD_ROWS)
 
 
 def _digest(tree) -> dict:
@@ -4567,13 +4640,14 @@ def _digest(tree) -> dict:
 
 
 def _mesh_session(params, cfg, plan, prompts, gen: int, mesh,
-                  correction="auto", hook=None):
+                  correction="auto", hook=None, slots: int = SLOTS,
+                  max_len: int = MAX_LEN):
     """One ProtectedSession (sharded when `mesh` is given) over `prompts`:
     (session, request ids, report, median decode-step ms)."""
     import torch
     from repro_torch.core import injection
     from repro_torch.serving import ProtectedSession
-    sess = ProtectedSession(params, cfg, plan, slots=SLOTS, max_len=MAX_LEN,
+    sess = ProtectedSession(params, cfg, plan, slots=slots, max_len=max_len,
                             correction=correction, mesh=mesh, device=DEVICE)
     rids = [sess.submit(p, max_new_tokens=gen) for p in prompts]
     scope = (injection.fault_scope(*hook) if hook
@@ -4586,17 +4660,28 @@ def _mesh_session(params, cfg, plan, prompts, gen: int, mesh,
     return sess, rids, rep, ms
 
 
-def yi_mesh_rank(rank: int, ref_dir: str) -> dict:
-    """One rank of phases 17a and 17b (launch.mesh.run_ranks starts four):
-    what the parent checks, as host values."""
+def mesh_rank(rank: int, ref_dir: str) -> dict:
+    """One rank of phases 17a/b and 18 (launch.mesh.run_ranks starts four,
+    once for both phases): what the parent checks, as host values."""
     import torch
-    from repro_torch import configs, core
-    from repro_torch.core import workflow
-    from repro_torch.kernels import abft_matmul as AM
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer as M
     torch.cuda.set_device(0)
     mesh = make_host_mesh(*YI_MESH, backend="gloo", device=DEVICE)
+    t0 = time.perf_counter()
+    out = yi_mesh_rank(rank, ref_dir, mesh)
+    out["seconds_17"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["rec"] = rec_mesh_rank(rank, ref_dir, mesh)
+    out["seconds_18"] = time.perf_counter() - t0
+    return out
+
+
+def yi_mesh_rank(rank: int, ref_dir: str, mesh) -> dict:
+    """Phases 17a and 17b on one rank of `mesh`."""
+    import torch
+    from repro_torch import configs, core
+    from repro_torch.models import transformer as M
     out = {"rank": rank, "coords": dict(mesh.coords)}
     t0 = time.perf_counter()
     cfg = configs.get(YI_ARCH).replace(num_layers=YI_LAYERS)
@@ -4610,57 +4695,15 @@ def yi_mesh_rank(rank: int, ref_dir: str) -> dict:
     out["setup_s"] = time.perf_counter() - t0
     prompts = serve_prompts(cfg, N_REQ, SEED + 3)
 
-    # -- 17a: the main path: deferred on the mesh, the kernels pinned ------
+    # -- 17a: the main path: deferred on the mesh, the kernels pinned;
+    # per_layer; +1e3 at rank 1's row-parallel wo partial in every layer
     t0 = time.perf_counter()
-    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
-    sess, rids, rep, ms = _mesh_session(params, cfg, fused, prompts, GEN,
-                                        mesh)
-    c = rep["counters"]
-    tokens = [sess.tokens_for(r) for r in rids]
-    out["deferred"] = {
-        "counters": c, "forwards": c["prefills"] + c["decode_steps"],
-        "detect_launches": AM.DETECT_LAUNCHES, "launches": AM.LAUNCHES,
-        "host_reads": workflow.HOST_READS, "decode_ms": ms,
-        "completed": rep["completed"],
-        "reasons": [r["finish_reason"] for r in rep["requests"]],
-        "hits": sum(int(any(e["hit"])) for e in sess.stats.decode_log)}
-    out["tokens"] = tokens
-    del sess
-    # per_layer on the mesh: the first 8 requests' first 8 tokens
-    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
-    s_pl, r_pl, rep_pl, _ = _mesh_session(params, cfg, fused,
-                                          prompts[:SLOTS], 8, mesh,
-                                          correction="per_layer")
-    c_pl = rep_pl["counters"]
-    out["per_layer"] = {
-        "tokens": [s_pl.tokens_for(r) for r in r_pl],
-        "forwards": c_pl["prefills"] + c_pl["decode_steps"],
-        "launches": AM.LAUNCHES, "host_reads": workflow.HOST_READS}
-    del s_pl
-    # +1e3 at rank 1's row-parallel wo partial, at slot 3's row of every
-    # decode step (rank 1 holds data shard 0: slots 0-3), every layer
-    target = 3
     local_slots = SLOTS // mesh.axis_size("data")
-
-    def wo_hook(o):
-        if o.dim() == 3 and o.shape[0] == local_slots and o.shape[1] == 1:
-            o = o.clone()
-            o[target % local_slots, 0, 1234 % o.shape[-1]] += 1e3
-        return o
-
-    drill_at = 1
-    s_d, r_d, rep_d, _ = _mesh_session(
-        params, cfg, fused, prompts[:SLOTS], 8, mesh,
-        hook=(("stages/b0_attn_full/attn/wo", wo_hook)
-              if rank == drill_at else None))
-    recs = {r["id"]: r for r in rep_d["requests"]}
-    out["drill"] = {
-        "rank": drill_at, "target": target, "counters": rep_d["counters"],
-        "by_slot": {recs[r]["slot"]: {k: recs[r][k] for k in (
-            "faults_detected", "corrections_applied", "residuals")}
-            for r in r_d},
-        "tokens": [s_d.tokens_for(r) for r in r_d]}
-    del s_d
+    out.update(_mesh_serving_cell(
+        rank, mesh, cfg, params, fused, prompts,
+        (("wo", "stages/b0_attn_full/attn/wo",
+          _drill_hook(local_slots, whole_row=False)),), True))
+    tokens = out["tokens"]
     out["serve_s"] = time.perf_counter() - t0
 
     out["serve_peak_before_reference_gib"] = \
@@ -4693,18 +4736,27 @@ def yi_mesh_rank(rank: int, ref_dir: str) -> dict:
     SH.axis_max(torch.zeros(1, device=DEVICE), mesh, "world")   # join
     out["serving_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
-    out["train"] = _yi_mesh_training(rank, mesh, ref_dir)
+    out["train"] = _mesh_training(rank, mesh, ref_dir, YI_TRAIN_CELL)
     out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return out
 
 
-def _yi_train_inputs(device):
-    """17b's config, start params and batches, drawn on the card from the
-    seed: the mesh's ranks and the unsharded reference make the same."""
+# the mesh's training cells (17b, 18d): (name, arch, layers, drill site
+# and the rank it is drilled on); each trains YI_TRAIN_STEPS AdamW steps
+# of YI_TRAIN_BATCH x YI_TRAIN_SEQ in YI_TRAIN_MB microbatches at
+# YI_TRAIN_LR from params and batches drawn on the card from the seed
+YI_TRAIN_CELL = ("yi", YI_ARCH, YI_TRAIN_LAYERS, "stages/b1_ffn/ffn/up",
+                 YI_LOSS_TOL)
+
+
+def _train_inputs(cell, device):
+    """A training cell's config, start params and batches, drawn on the
+    card from the seed: the mesh's ranks and the unsharded reference make
+    the same."""
     import torch
     from repro_torch import configs
     from repro_torch.models import transformer as M
-    cfg = configs.get(YI_ARCH).replace(num_layers=YI_TRAIN_LAYERS)
+    cfg = configs.get(cell[1]).replace(num_layers=cell[2])
     full = M.init_params(
         cfg, generator=torch.Generator(device=device).manual_seed(SEED),
         device=device)
@@ -4717,12 +4769,12 @@ def _yi_train_inputs(device):
     return cfg, full, batches
 
 
-def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
-    """17b on one rank: Yi-9B at YI_TRAIN_LAYERS layers, bf16 params,
+def _mesh_training(rank: int, mesh, ref_dir: str, cell) -> dict:
+    """A training cell on one rank of the mesh (17b, 18d): bf16 params,
     AdamW, remat on; the drill pair, then YI_TRAIN_STEPS sharded steps,
     their params gathered and saved by rank 0 to `ref_dir` for the
     unsharded reference, which runs after the mesh's ranks have left the
-    card (yi_train_reference)."""
+    card (mesh_train_reference)."""
     import torch
     from repro_torch import core
     from repro_torch._tree import tree_flatten_with_path
@@ -4731,15 +4783,17 @@ def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
     from repro_torch.launch import steps as ST
     from repro_torch.optim import OptConfig, init_opt_state
     from repro_torch.runtime import sharding as SH
-    # four ranks' training states of ~12 GiB share the card, and a step
-    # allocates temporaries of many sizes: expandable segments keep each
-    # rank's caching allocator from reserving GiBs it does not hold (as
-    # phase 16). Training is the rank's last work: it captures no graph.
+    # four ranks' training states share the card, and a step allocates
+    # temporaries of many sizes: expandable segments keep each rank's
+    # caching allocator from reserving GiBs it does not hold (as phase
+    # 16). Training is the rank's last work of a model: it captures no
+    # graph.
     torch.cuda.empty_cache()
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    name, drill_site = cell[0], cell[3]
     t0 = time.perf_counter()
     opt = OptConfig(lr=YI_TRAIN_LR)
-    cfg, full, batches = _yi_train_inputs(DEVICE)
+    cfg, full, batches = _train_inputs(cell, DEVICE)
     specs = SH.param_shardings(full, mesh, cfg)
     flat = SH.flat_specs(specs)
     local = SH.shard_tree(full, specs, mesh)
@@ -4752,9 +4806,9 @@ def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
     out = {"setup_s": time.perf_counter() - t0}
 
     # the drill pair: one step from the start state, clean and with +1e3
-    # at rank 1's shard of the first repeat's ffn/up (forward and remat's
-    # recompute), both inside plan_scope(mode="correct")
-    def up_hook(o):
+    # at rank 1's shard of the drill site in the first repeat (forward and
+    # remat's recompute), both inside plan_scope(mode="correct")
+    def hook(o):
         if current_repeat() == 0:
             o = o.clone()
             o[0, 5, 7] += 1e3
@@ -4763,23 +4817,26 @@ def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
     with SH.parallel_scope(mesh, specs):
         with core.plan_scope(mode="correct"):
             clean, m_c = step(state, batches[0])
-        clean = clean["params"]          # the new moments go at once
-        hook = ("stages/b1_ffn/ffn/up", up_hook) if rank == 1 else None
+        # the new moments go at once, the params to the host: the drilled
+        # step then holds no second state on the card
+        clean = {p: t.cpu() for p, t in
+                 tree_flatten_with_path(clean["params"])}
+        drill = (drill_site, hook) if rank == 1 else None
         with core.plan_scope(mode="correct"), (
-                injection.fault_scope(*hook) if hook
+                injection.fault_scope(*drill) if drill
                 else contextlib.nullcontext()):
             drilled, m_d = step(state, batches[0])
         drilled = drilled["params"]
-    pairs = list(zip(tree_flatten_with_path(clean),
-                     tree_flatten_with_path(drilled)))
+    pairs = [(clean[p], t.cpu()) for p, t in
+             tree_flatten_with_path(drilled)]
     out["drill"] = {
-        "rank": 1,
+        "rank": 1, "site": drill_site,
         "report": [int(x) for x in m_d["report"]],
         "clean_report": [int(x) for x in m_c["report"]],
         "loss": float(m_d["loss"]), "clean_loss": float(m_c["loss"]),
-        "params_bitwise": all(torch.equal(a, b) for (_, a), (_, b) in pairs),
+        "params_bitwise": all(torch.equal(a, b) for a, b in pairs),
         "max_abs_diff": max(float((a.float() - b.float()).abs().max())
-                            for (_, a), (_, b) in pairs)}
+                            for a, b in pairs)}
     del clean, drilled, pairs
 
     # YI_TRAIN_STEPS sharded steps, timed
@@ -4797,34 +4854,35 @@ def _yi_mesh_training(rank: int, mesh, ref_dir: str) -> dict:
     out["replicated"] = {p: h for p, h in _digest(state["params"]).items()
                          if not SH.is_sharded(flat[p])}
     out["reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if rank == 0:
-        log(f"  [rank 0] 17b sharded: losses {losses}, step ms {ms}")
+        log(f"  [rank 0] {name} sharded: losses {losses}, step ms {ms}")
         torch.save({p: t.cpu() for p, t in
                     tree_flatten_with_path(gathered)},
-                   os.path.join(ref_dir, "sharded_params.pt"))
+                   os.path.join(ref_dir, f"{name}_sharded_params.pt"))
+    del state, gathered
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def yi_train_reference(rank: int, ref_dir: str) -> dict:
-    """17b's unsharded reference, alone on the card once the mesh's ranks
-    have left it: YI_TRAIN_STEPS unsharded steps from the same start
-    params on the same batches, and two controls the gates must tell
-    from a sound sharded run: the steps on each batch's first half (one
-    data rank's rows alone) and the losses of the start state (an update
-    that left the state unchanged). For each leaf, the sharded update's
-    distance from the unsharded one, |d_s - d_r| / |d_r| (Frobenius, the
-    updates d = new - start in fp32; 0 where both are 0), and the
-    half-batch control's; the old per-element reading against the JAX
+def _train_reference(ref_dir: str, cell) -> dict:
+    """A training cell's unsharded reference, alone on the card once the
+    mesh's ranks have left it: YI_TRAIN_STEPS unsharded steps from the
+    same start params on the same batches, and two controls the gates
+    must tell from a sound sharded run: the steps on each batch's first
+    half (one data rank's rows alone) and the losses of the start state
+    (an update that left the state unchanged). For each leaf, the sharded
+    update's distance from the unsharded one, |d_s - d_r| / |d_r|
+    (Frobenius, the updates d = new - start in fp32; 0 where both are 0),
+    and the half-batch control's; the per-element reading against the JAX
     test's 2e-2 beside them."""
     import torch
     from repro_torch._tree import tree_flatten_with_path
     from repro_torch.launch import steps as ST
     from repro_torch.optim import OptConfig, init_opt_state
-    torch.cuda.set_device(0)
     t0 = time.perf_counter()
     opt = OptConfig(lr=YI_TRAIN_LR)
-    cfg, full, batches = _yi_train_inputs(DEVICE)
+    cfg, full, batches = _train_inputs(cell, DEVICE)
     ref_step = ST.make_train_step(cfg, opt, microbatches=YI_TRAIN_MB,
                                   warmup=0)
 
@@ -4849,7 +4907,8 @@ def yi_train_reference(rank: int, ref_dir: str) -> dict:
     # the unchanged state's step 0 is the unsharded step 0
     unchanged_losses = [float(ref_step(start(), b)[1]["loss"])
                         for b in batches[1:]]
-    sharded = torch.load(os.path.join(ref_dir, "sharded_params.pt"))
+    sharded = torch.load(os.path.join(ref_dir,
+                                      f"{cell[0]}_sharded_params.pt"))
     p0 = dict(tree_flatten_with_path(full))
 
     def update_gap(a, r, s0):
@@ -4866,15 +4925,32 @@ def yi_train_reference(rank: int, ref_dir: str) -> dict:
         upd_half[p] = update_gap(half[p], r, p0[p])
         lim = YI_TRAIN_TOL + YI_TRAIN_TOL * r.float().abs()
         over_tol[p] = float(((a.float() - r.float()).abs() / lim).max())
-    return {"losses": ref_losses, "step_ms": ref_ms,
-            "half_losses": half_losses,
-            "unchanged_losses": unchanged_losses,
-            "update_dist": upd, "half_update_dist": upd_half,
-            "moves": moves,
-            "worst_over_tol": max(over_tol.values()),
-            "worst_leaf": max(over_tol, key=over_tol.get),
-            "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
-            "seconds": time.perf_counter() - t0}
+    out = {"losses": ref_losses, "step_ms": ref_ms,
+           "half_losses": half_losses,
+           "unchanged_losses": unchanged_losses,
+           "update_dist": upd, "half_update_dist": upd_half,
+           "moves": moves,
+           "worst_over_tol": max(over_tol.values()),
+           "worst_leaf": max(over_tol, key=over_tol.get),
+           "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "seconds": time.perf_counter() - t0}
+    del ref, half, sharded, p0, full
+    torch.cuda.empty_cache()
+    return out
+
+
+def unsharded_rank(rank: int, ref_dir: str, cells) -> dict:
+    """The mesh phases' one-process work, alone on the card after the
+    mesh's ranks have left it, in a world of one NCCL rank: 17c, then
+    17b's and 18d's unsharded references ({cell name: reference})."""
+    import torch
+    torch.cuda.set_device(0)
+    out = {"nccl": yi_nccl_rank(rank)}
+    t0 = time.perf_counter()
+    out["refs"] = {cell[0]: _train_reference(ref_dir, cell)
+                   for cell in cells}
+    out["refs_s"] = time.perf_counter() - t0
+    return out
 
 
 def yi_nccl_rank(rank: int) -> dict:
@@ -4887,7 +4963,6 @@ def yi_nccl_rank(rank: int) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import transformer as M
     from repro_torch.runtime import sharding as SH
-    torch.cuda.set_device(0)
     mesh = make_host_mesh(1, 1, backend="nccl", device=DEVICE)
     cfg = configs.get(YI_ARCH + "-smoke").replace(dtype="bfloat16")
     params = M.init_params(
@@ -4922,6 +4997,249 @@ def yi_nccl_rank(rank: int) -> dict:
     return out
 
 
+def _drill_hook(local_slots: int, whole_row: bool):
+    """A decode-step hook (rows of `local_slots` slots, one position) that
+    adds 1e3 at slot 3's row: at one element, or across the rank's whole
+    shard of the row (one element of a decay gate moves the logits by less
+    than the localizer's tolerance). Rank 1 holds data shard 0, slots 0-3,
+    on the (2, 2) mesh."""
+    def hook(o):
+        if o.dim() == 3 and o.shape[0] == local_slots and o.shape[1] == 1:
+            o = o.clone()
+            cols = slice(None) if whole_row else 1234 % o.shape[-1]
+            o[3 % local_slots, 0, cols] += 1e3
+        return o
+    return hook
+
+
+def _rank_counts(AM, workflow) -> dict:
+    return {"detect_launches": AM.DETECT_LAUNCHES, "launches": AM.LAUNCHES,
+            "host_reads": workflow.HOST_READS}
+
+
+def _by_slot(rep, rids) -> dict:
+    recs = {r["id"]: r for r in rep["requests"]}
+    return {recs[r]["slot"]: {k: recs[r][k] for k in (
+        "faults_detected", "corrections_applied", "residuals")}
+        for r in rids}
+
+
+def _mesh_serving_cell(rank: int, mesh, cfg, params, fused, prompts,
+                       drills, per_layer: bool) -> dict:
+    """One model served on the mesh as 17a serves Yi-9B: the deferred
+    session over `prompts` (the kernels pinned) with its launches and
+    reads, with `per_layer` the first SLOTS requests' first 8 tokens in
+    per_layer mode, and each of `drills` ((name, site, hook): the hook
+    runs on rank 1 only) over the first SLOTS requests' 8 tokens."""
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    sess, rids, rep, ms = _mesh_session(params, cfg, fused, prompts, GEN,
+                                        mesh)
+    c = rep["counters"]
+    out["deferred"] = {
+        "counters": c, "forwards": c["prefills"] + c["decode_steps"],
+        **_rank_counts(AM, workflow), "decode_ms": ms,
+        "completed": rep["completed"],
+        "reasons": [r["finish_reason"] for r in rep["requests"]],
+        "hits": sum(int(any(e["hit"])) for e in sess.stats.decode_log)}
+    out["tokens"] = [sess.tokens_for(r) for r in rids]
+    del sess
+    out["seconds"]["deferred"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if per_layer:
+        AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+        s_pl, r_pl, rep_pl, _ = _mesh_session(
+            params, cfg, fused, prompts[:SLOTS], 8, mesh,
+            correction="per_layer")
+        c_pl = rep_pl["counters"]
+        out["per_layer"] = {
+            "tokens": [s_pl.tokens_for(r) for r in r_pl],
+            "forwards": c_pl["prefills"] + c_pl["decode_steps"],
+            "launches": AM.LAUNCHES, "host_reads": workflow.HOST_READS}
+        del s_pl
+        out["seconds"]["per_layer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["drills"] = {}
+    for name, site, hook in drills:
+        s_d, r_d, rep_d, _ = _mesh_session(
+            params, cfg, fused, prompts[:SLOTS], 8, mesh,
+            hook=(site, hook) if rank == 1 else None)
+        out["drills"][name] = {
+            "rank": 1, "site": site, "counters": rep_d["counters"],
+            "by_slot": _by_slot(rep_d, r_d),
+            "tokens": [s_d.tokens_for(r) for r in r_d]}
+        del s_d
+    out["seconds"]["drills"] = time.perf_counter() - t0
+    return out
+
+
+def rec_mesh_rank(rank: int, ref_dir: str, mesh) -> dict:
+    """Phase 18 on one rank of `mesh` (the ranks of phase 17, after it):
+    18a RecurrentGemma-2B served at full width, 18b its context-parallel
+    decode of one long prompt, 18c Mamba2-1.3B served, 18d both trained;
+    what the parent checks, as host values. Rank 0 also runs the
+    unsharded references of 18a-c (the teacher-forced forwards, 18b's
+    unsharded session) while the others wait at the next collective."""
+    import numpy as np
+    import torch
+    from repro_torch import configs, core
+    from repro_torch._tree import tree_flatten_with_path, tree_map
+    from repro_torch.core import workflow
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.models import transformer as M
+    from repro_torch.runtime import sharding as SH
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    local_slots = SLOTS // mesh.axis_size("data")
+    row_hook = _drill_hook(local_slots, whole_row=True)
+    one_hook = _drill_hook(local_slots, whole_row=False)
+
+    def join():
+        SH.axis_max(torch.zeros(1, device=DEVICE), mesh, "world")
+
+    # -- 18a: RecurrentGemma-2B on the mesh ----------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get(RG_ARCH).replace(num_layers=RG_MESH_LAYERS)
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    params["embed"]["table"].mul_(RG_TABLE_SCALE)
+    fused = core.force_fused_matmul(core.build_plan(
+        params, cfg, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+    t0 = time.perf_counter()
+    a = _mesh_serving_cell(
+        rank, mesh, cfg, params, fused, prompts,
+        (("gate_a", "stages/b0_rec/rec/gate_a", row_hook),
+         ("wo", "stages/b4_attn_swa/attn/wo", one_hook)), True)
+    a["setup_s"] = setup_s
+    a["serve_s"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        gap, worst = teacher_forced(params, cfg, fused, prompts,
+                                    a["tokens"])
+        a["teacher_forced"] = {"bf16": {"max_logit_gap": gap,
+                                        "max_margin": worst}}
+        a["reference_s"] = time.perf_counter() - t0
+    a["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    join()
+    out["rg"] = a
+
+    # -- 18b: context-parallel decode of one long prompt ---------------------
+    t0 = time.perf_counter()
+    prompt = np.random.default_rng(SEED + 4).integers(0, cfg.vocab_size,
+                                                       CP_PROMPT)
+    AM.LAUNCHES = AM.DETECT_LAUNCHES = workflow.HOST_READS = 0
+    sess, rids, rep, ms = _mesh_session(params, cfg, fused, [prompt],
+                                        CP_GEN, mesh, slots=1,
+                                        max_len=CP_MAX_LEN)
+    c = rep["counters"]
+    b = {"counters": c, "forwards": c["prefills"] + c["decode_steps"],
+         **_rank_counts(AM, workflow), "decode_ms": ms,
+         "completed": rep["completed"],
+         "tokens": sess.tokens_for(rids[0]),
+         "kv_shapes": {p: list(t.shape) for p, t in
+                       tree_flatten_with_path(sess._caches)
+                       if p.endswith(("/k", "/v"))}}
+    del sess
+    b["seconds"] = time.perf_counter() - t0
+    if rank == 0:
+        t0 = time.perf_counter()
+        s_u, r_u, _, ms_u = _mesh_session(params, cfg, fused, [prompt],
+                                          CP_GEN, None, slots=1,
+                                          max_len=CP_MAX_LEN)
+        b["unsharded"] = {"decode_ms": ms_u,
+                          "tokens": s_u.tokens_for(r_u[0])}
+        del s_u
+        torch.cuda.empty_cache()
+        tf = {}
+        for k, toks in (("mesh", b["tokens"]),
+                        ("unsharded", b["unsharded"]["tokens"])):
+            gap, worst = teacher_forced(params, cfg, fused, [prompt], [toks])
+            tf[k] = {"max_logit_gap": gap, "max_margin": worst}
+        b["teacher_forced"] = tf
+        b["reference_s"] = time.perf_counter() - t0
+    b["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    fused = None
+    torch.cuda.empty_cache()
+    join()
+    out["cp"] = b
+
+    # -- 18a's float32 twin of the same weights, served on the mesh (the
+    # bf16 plan gone first: one model's plan on the card at a time) -------
+    t0 = time.perf_counter()
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    del params
+    fused32 = core.force_fused_matmul(core.build_plan(
+        p32, cfg32, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    s32, r32, rep32, _ = _mesh_session(p32, cfg32, fused32,
+                                       prompts[:SLOTS], 8, mesh)
+    a["f32"] = {"counters": rep32["counters"],
+                "completed": rep32["completed"]}
+    tokens32 = [s32.tokens_for(r) for r in r32]
+    del s32
+    if rank == 0:
+        gap32, worst32 = teacher_forced(p32, cfg32, fused32,
+                                        prompts[:SLOTS], tokens32)
+        a["teacher_forced"]["f32"] = {"max_logit_gap": gap32,
+                                      "max_margin": worst32}
+    a["f32"]["seconds"] = time.perf_counter() - t0
+    a["f32"]["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    del p32, fused32
+    torch.cuda.empty_cache()
+    join()
+
+    # -- 18c: Mamba2-1.3B on the mesh ----------------------------------------
+    t0 = time.perf_counter()
+    cfg = configs.get(MAMBA_ARCH).replace(num_layers=MAMBA_MESH_LAYERS)
+    params = M.init_params(
+        cfg, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+        device=DEVICE)
+    fused = core.force_fused_matmul(core.build_plan(
+        params, cfg, batch=SLOTS, seq=MAX_LEN, device=DEVICE))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    prompts = serve_prompts(cfg, N_REQ, SEED + 3)
+    t0 = time.perf_counter()
+    m = _mesh_serving_cell(
+        rank, mesh, cfg, params, fused, prompts,
+        (("in_proj", "stages/b0_ssm/ssm/in_proj", one_hook),), False)
+    m["setup_s"], m["serve_s"] = setup_s, time.perf_counter() - t0
+    if rank == 0:
+        gap, worst = teacher_forced(params, cfg, fused, prompts,
+                                    m["tokens"])
+        m["teacher_forced"] = {"max_logit_gap": gap, "max_margin": worst}
+    m["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, fused
+    torch.cuda.empty_cache()
+    join()
+    out["mamba"] = m
+    out["serving_peak_gib"] = max(a["peak_gib"], a["f32"]["peak_gib"],
+                                  b["peak_gib"], m["peak_gib"])
+
+    # -- 18d: training both ---------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    out["train"] = {cell[0]: _mesh_training(rank, mesh, ref_dir, cell)
+                    for cell in REC_TRAIN_CELLS}
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rank == 0:
+        log(f"  [rank 0] 18: setup RecurrentGemma-2B {a['setup_s']:.1f} s, "
+            f"its sessions {a['serve_s']:.1f} s, 18b {b['seconds']:.1f} s, "
+            f"Mamba2-1.3B setup {m['setup_s']:.1f} s, sessions "
+            f"{m['serve_s']:.1f} s, training "
+            f"{[round(t['seconds'], 1) for t in out['train'].values()]} s")
+    return out
+
+
 @contextlib.contextmanager
 def card_memory_peak(out: dict, key: str, period_s: float = 0.05):
     """The card's memory in use by every process (cudaMemGetInfo),
@@ -4948,92 +5266,309 @@ def card_memory_peak(out: dict, key: str, period_s: float = 0.05):
         out[key] = peak[0] / 2 ** 30
 
 
+def check_mesh_training(label: str, trains, ref, loss_tol: float) -> dict:
+    """The gates of a training cell on the mesh (17b, 18d): `trains` is
+    each rank's _mesh_training result, `ref` the cell's
+    _train_reference, `loss_tol` its loss limit. The limits must catch
+    both controls: each is over the loss limit at some step, and the
+    half-batch control over the update limit at some leaf."""
+    t = trains[0]
+    loss_gap = [abs(a - b) for a, b in zip(t["losses"], ref["losses"])]
+    half_gap = [abs(a - b) for a, b in zip(ref["half_losses"],
+                                           ref["losses"])]
+    same_gap = [abs(a - b) for a, b in zip(ref["unchanged_losses"],
+                                           ref["losses"][1:])]
+    upd = ref["update_dist"]
+    worst_upd = max(upd, key=upd.get)
+    half_upd = [d for p, d in ref["half_update_dist"].items()
+                if ref["moves"][p]]
+    log(f"  {label}: losses {t['losses']} sharded, {ref['losses']} unsharded; "
+        f"|loss gap| {[f'{x:.3g}' for x in loss_gap]} (limit "
+        f"{loss_tol}; controls: half batch "
+        f"{[f'{x:.3g}' for x in half_gap]}, unchanged state "
+        f"{[f'{x:.3g}' for x in same_gap]} after step 0)")
+    log(f"  {label} updates: |d_sharded - d_unsharded| / |d_unsharded| at most "
+        f"{upd[worst_upd]:.4g} ({worst_upd}; limit {YI_UPDATE_TOL}); the "
+        f"half-batch control {min(half_upd):.4g}-{max(half_upd):.4g} on the "
+        f"{len(half_upd)} leaves that move (the others stay bitwise: bf16 "
+        "rounds their updates away); an unchanged state reads 1. "
+        f"Per element: |diff| / ({YI_TRAIN_TOL} + {YI_TRAIN_TOL} |p|) "
+        f"{ref['worst_over_tol']:.3g} at {ref['worst_leaf']}")
+    log(f"  {label} step ms {[round(x, 1) for x in t['step_ms']]} sharded, "
+        f"{[round(x, 1) for x in ref['step_ms']]} unsharded (alone, "
+        f"{ref['seconds']:.1f} s with its controls)")
+    if not (max(half_gap) > loss_tol and max(same_gap) > loss_tol
+            and max(half_upd) > YI_UPDATE_TOL):
+        fail(f"{label}: the limits do not catch the controls (half batch: "
+             f"loss gaps {half_gap}, updates up to {max(half_upd):.4g}; "
+             f"unchanged state: {same_gap})")
+    for i, g in enumerate(loss_gap):
+        if not g <= loss_tol:
+            fail(f"{label} step {i}: loss {t['losses'][i]} sharded vs "
+                 f"{ref['losses'][i]} unsharded")
+    for p, d in upd.items():
+        if not d <= YI_UPDATE_TOL:
+            fail(f"{label}: {p}'s update is {d:.4g} of the unsharded one "
+                 "away from it")
+    if not ref["worst_over_tol"] <= 1.0:
+        fail(f"{label}: {ref['worst_leaf']} beyond {YI_TRAIN_TOL}")
+    for rank, tr in enumerate(trains):
+        if tr["replicated"] != t["replicated"]:
+            fail(f"{label}: rank {rank}'s replicated leaves differ from "
+                 "rank 0's")
+        dr = tr["drill"]
+        if not (dr["report"][0] and dr["report"][1] and not dr["report"][2]
+                and dr["clean_report"] == [0, 0, 0]
+                and dr["loss"] == dr["clean_loss"]
+                and dr["params_bitwise"]):
+            fail(f"{label} rank {rank}: {dr['site']} drill {dr}")
+    dr = t["drill"]
+    log(f"  {label} drill: +1e3 at rank 1's {dr['site']} shard (forward and "
+        f"recompute): report {dr['report']} on every rank, loss "
+        f"{dr['loss']} == clean {dr['clean_loss']}; new params bitwise the "
+        "clean step's on every rank; replicated leaves bitwise equal "
+        "across ranks")
+    return {"losses": t["losses"], "unsharded": ref,
+            "step_ms": [tr["step_ms"] for tr in trains],
+            "drill": t["drill"],
+            "reserved_gib": [tr["reserved_gib"] for tr in trains]}
+
+
+def _check_mesh_serving(label: str, cells, n_sites: int,
+                        per_layer: bool) -> None:
+    """17a's serving gates on every rank's _mesh_serving_cell result:
+    every request finished by length, a clean count, `n_sites` detect
+    launches and 1 read per forward, the tokens equal across ranks,
+    per_layer's same tokens with `n_sites` launches and reads a forward,
+    and each drill detected and corrected in every decode step at slot 3
+    only, its tokens the clean ones."""
+    c0 = cells[0]
+    want = [t[:8] for t in c0["tokens"][:SLOTS]]
+    for rank, cell in enumerate(cells):
+        d = cell["deferred"]
+        log(f"  {label} rank {rank}: deferred {d['completed']} requests, "
+            f"{d['forwards']} forwards, detect launches "
+            f"{d['detect_launches']}, abft_matmul {d['launches']}, host "
+            f"reads {d['host_reads']}, decode step {d['decode_ms']:.2f} ms")
+        if d["reasons"] != ["length"] * N_REQ or d["completed"] != N_REQ:
+            fail(f"{label} rank {rank}: requests finished {d['reasons']}")
+        c = d["counters"]
+        if c["faults_detected"] or c["dropped"] or d["hits"]:
+            fail(f"{label} rank {rank}: clean serving counted {c}")
+        if (d["detect_launches"] != n_sites * d["forwards"] or d["launches"]
+                or d["host_reads"] != d["forwards"]):
+            fail(f"{label} rank {rank}: {d['forwards']} forwards launched "
+                 f"{d['detect_launches']} detect / {d['launches']} "
+                 f"abft_matmul with {d['host_reads']} reads; want "
+                 f"{n_sites} detect launches and 1 read each")
+        if cell["tokens"] != c0["tokens"]:
+            fail(f"{label}: rank {rank}'s tokens differ from rank 0's")
+        if per_layer:
+            pl = cell["per_layer"]
+            if pl["tokens"] != want:
+                fail(f"{label} rank {rank}: per_layer tokens differ from "
+                     "deferred's")
+            if (pl["launches"] != n_sites * pl["forwards"]
+                    or pl["host_reads"] != n_sites * pl["forwards"]):
+                fail(f"{label} rank {rank}: per_layer {pl}")
+        for name, dr in cell["drills"].items():
+            by, cd = dr["by_slot"], dr["counters"]
+            tgt = by[3]
+            ok = (tgt["faults_detected"] == cd["decode_steps"]
+                  and tgt["corrections_applied"] == cd["decode_steps"]
+                  and tgt["residuals"] == 0
+                  and all(v["faults_detected"] == 0
+                          for sl, v in by.items() if sl != 3)
+                  and cd["faults_unattributed"] == 0
+                  and cd["residual_steps"] == 0)
+            if not ok or dr["tokens"] != want:
+                fail(f"{label} rank {rank}: {name} drill {by} {cd}, tokens "
+                     f"equal {dr['tokens'] == want}")
+    log(f"  {label} seconds on rank 0: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in c0["seconds"].items()))
+    if per_layer:
+        pl = c0["per_layer"]
+        log(f"  {label} per_layer: {pl['launches']} abft_matmul launches "
+            f"and {pl['host_reads']} reads over {pl['forwards']} forwards, "
+            "tokens == deferred, on every rank")
+    for name, dr in c0["drills"].items():
+        cd = dr["counters"]
+        log(f"  {label} drill: +1e3 at rank 1's {dr['site']} shard, slot 3, "
+            f"every decode step: {cd['faults_detected']} detected / "
+            f"{cd['faults_corrected']} corrected over {cd['decode_steps']} "
+            "steps on every rank, attributed to its request, tokens == "
+            "clean")
+
+
+def check_rec_mesh(ranks, refs) -> dict:
+    """Phase 18's gates on what the ranks returned (rec_mesh_rank) and the
+    unsharded training references."""
+    recs = [r["rec"] for r in ranks]
+    r0 = recs[0]
+    res = {}
+    # -- 18a
+    n_rg = 23 * RG_MESH_LAYERS // 3 + 1
+    _check_mesh_serving("18a", [r["rg"] for r in recs], n_rg, True)
+    a = r0["rg"]
+    tf = a["teacher_forced"]
+    log(f"  18a teacher-forced, bf16: the kernel route and cuBLAS differ by "
+        f"up to {tf['bf16']['max_logit_gap']:.4g} in a logit; the mesh's "
+        f"tokens at most {tf['bf16']['max_margin']:.4g} below the "
+        f"unsharded unprotected top (limit 2 x gap + {DELTA}); the float32 "
+        f"twin served on the mesh {tf['f32']['max_margin']:.4g} (limit "
+        f"{DELTA}, gap {tf['f32']['max_logit_gap']:.4g})")
+    if not (tf["bf16"]["max_margin"]
+            <= 2 * tf["bf16"]["max_logit_gap"] + DELTA):
+        fail(f"18a: a served token is {tf['bf16']['max_margin']:.4g} below "
+             "the unsharded top")
+    for r in recs:
+        f32 = r["rg"]["f32"]
+        if f32["counters"]["faults_detected"] or f32["completed"] != SLOTS:
+            fail(f"18a float32 twin on the mesh: {f32}")
+    if not tf["f32"]["max_margin"] <= DELTA:
+        fail(f"18a float32 twin: a served token is "
+             f"{tf['f32']['max_margin']:.4g} below the top")
+    res["rg"] = {"decode_ms": [r["rg"]["deferred"]["decode_ms"]
+                               for r in recs],
+                 "detect_launches_per_forward": n_rg,
+                 "forwards": a["deferred"]["forwards"],
+                 "teacher_forced": tf,
+                 "drills": {k: v["counters"] for k, v in a["drills"].items()},
+                 "setup_s": [r["rg"]["setup_s"] for r in recs],
+                 "serve_s": [r["rg"]["serve_s"] for r in recs]}
+    # -- 18b
+    from repro_torch import configs
+    b = r0["cp"]
+    cfg = configs.get(RG_ARCH)
+    tp = YI_MESH[1]
+    hkv = cfg.num_kv_heads // (tp if cfg.num_kv_heads % tp == 0 else 1)
+    want_kv = [RG_MESH_LAYERS // 3, 1, CP_MAX_LEN // YI_MESH[0], hkv,
+               cfg.head_dim]
+    for rank, r in enumerate(recs):
+        cp = r["cp"]
+        if cp["tokens"] != b["tokens"] or cp["completed"] != 1:
+            fail(f"18b: rank {rank} served {cp['tokens']}")
+        if (cp["detect_launches"] != n_rg * cp["forwards"] or cp["launches"]
+                or cp["host_reads"] != cp["forwards"]
+                or cp["counters"]["faults_detected"]):
+            fail(f"18b rank {rank}: {cp['forwards']} forwards, "
+                 f"{cp['detect_launches']} detect launches, "
+                 f"{cp['host_reads']} reads, {cp['counters']}")
+        if any(v != want_kv for v in cp["kv_shapes"].values()):
+            fail(f"18b rank {rank}: KV blocks {cp['kv_shapes']}, want "
+                 f"{want_kv} each")
+    tfb = b["teacher_forced"]
+    same = sum(x == y for x, y in zip(b["tokens"], b["unsharded"]["tokens"]))
+    log(f"  18b: one {CP_PROMPT}-token prompt, {CP_GEN} new tokens, 1 slot, "
+        f"max_len {CP_MAX_LEN}: each data rank's KV blocks {want_kv} "
+        f"(every decode window of {cfg.window_size} crosses position "
+        f"{CP_MAX_LEN // YI_MESH[0]}); {n_rg} detect launches and 1 read "
+        f"per forward per rank; {same}/{CP_GEN} tokens equal the unsharded "
+        f"session's; teacher-forced, the mesh's tokens at most "
+        f"{tfb['mesh']['max_margin']:.4g} below the unsharded unprotected "
+        f"top, the unsharded session's {tfb['unsharded']['max_margin']:.4g} "
+        f"(limit: the unsharded session's + {DELTA}); decode step "
+        f"{[round(r['cp']['decode_ms'], 2) for r in recs]} ms a rank, "
+        f"unsharded {b['unsharded']['decode_ms']:.2f} ms (four ranks on one "
+        "card: not a multi-card speed)")
+    if not (tfb["mesh"]["max_margin"]
+            <= tfb["unsharded"]["max_margin"] + DELTA):
+        fail(f"18b: the context-parallel tokens sit "
+             f"{tfb['mesh']['max_margin']:.4g} below the top, the unsharded "
+             f"session's {tfb['unsharded']['max_margin']:.4g}")
+    res["cp"] = {"decode_ms": [r["cp"]["decode_ms"] for r in recs],
+                 "unsharded_decode_ms": b["unsharded"]["decode_ms"],
+                 "token_equal": same, "teacher_forced": tfb,
+                 "kv_block": want_kv,
+                 "seconds": [r["cp"]["seconds"] for r in recs]}
+    # -- 18c
+    n_m = 2 * MAMBA_MESH_LAYERS + 1
+    _check_mesh_serving("18c", [r["mamba"] for r in recs], n_m, False)
+    tfm = r0["mamba"]["teacher_forced"]
+    log(f"  18c teacher-forced, bf16: gap {tfm['max_logit_gap']:.4g}, the "
+        f"mesh's tokens at most {tfm['max_margin']:.4g} below the top "
+        f"(limit 2 x gap + {DELTA})")
+    if not tfm["max_margin"] <= 2 * tfm["max_logit_gap"] + DELTA:
+        fail(f"18c: a served token is {tfm['max_margin']:.4g} below the top")
+    res["mamba"] = {"decode_ms": [r["mamba"]["deferred"]["decode_ms"]
+                                  for r in recs],
+                    "detect_launches_per_forward": n_m,
+                    "forwards": r0["mamba"]["deferred"]["forwards"],
+                    "teacher_forced": tfm,
+                    "drills": {k: v["counters"] for k, v in
+                               r0["mamba"]["drills"].items()}}
+    # -- 18d
+    res["training"] = {
+        cell[0]: check_mesh_training(f"18d {cell[0]}",
+                                     [r["train"][cell[0]] for r in recs],
+                                     refs[cell[0]], cell[4])
+        for cell in REC_TRAIN_CELLS}
+    peaks = {k: [round(v, 2) for v in vals] for k, vals in (
+        ("18a", [r["rg"]["peak_gib"] for r in recs]),
+        ("18a float32 twin", [r["rg"]["f32"]["peak_gib"] for r in recs]),
+        ("18b", [r["cp"]["peak_gib"] for r in recs]),
+        ("18c", [r["mamba"]["peak_gib"] for r in recs]),
+        *((f"18d {c[0]}", [r["train"][c[0]]["peak_gib"] for r in recs])
+          for c in REC_TRAIN_CELLS))}
+    log(f"  18 allocated peaks a rank, GiB: {peaks}")
+    res["peaks_gib"] = peaks
+    res["peak_gib"] = [max(r["serving_peak_gib"], r["train_peak_gib"])
+                       for r in recs]
+    return res
+
+
 def run_mesh_phase(report) -> dict:
-    """Phase 17: the (data, model) mesh (YI_MESH: four ranks that share the
-    card through gloo) serving (17a) and training (17b) Yi-9B at full
-    width, then a (1, 1) NCCL mesh (17c). The ranks are child processes
-    (launch.mesh.run_ranks); this process checks what they return."""
+    """Phases 17 and 18: the (data, model) mesh (YI_MESH: four ranks that
+    share the card through gloo) serving (17a) and training (17b) Yi-9B
+    at full width, then in the same ranks RecurrentGemma-2B served (18a)
+    with one long prompt's context-parallel decode (18b), Mamba2-1.3B
+    served (18c) and both trained (18d); then a (1, 1) NCCL mesh (17c).
+    The ranks are child processes (launch.mesh.run_ranks), the unsharded
+    training references a process of their own after them; this process
+    checks what they return."""
     import tempfile
     import torch
     from repro_torch.launch.mesh import run_ranks
     log(f"phase 17a/b: Yi-9B on a {YI_MESH} mesh of {math.prod(YI_MESH)} "
         f"ranks sharing the card through gloo ({YI_LAYERS} layers served, "
-        f"{YI_TRAIN_LAYERS} trained)")
+        f"{YI_TRAIN_LAYERS} trained), then in the same ranks phase 18: "
+        f"RecurrentGemma-2B ({RG_MESH_LAYERS} layers served, one "
+        f"{CP_PROMPT}-token prompt decoded context-parallel), Mamba2-1.3B "
+        f"({MAMBA_MESH_LAYERS} layers served), both trained "
+        f"({[c[2] for c in REC_TRAIN_CELLS]} layers)")
     torch.cuda.empty_cache()        # the card's memory gate counts ours too
+    log(f"  this process holds {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+        "GiB of the card's memory while the ranks run")
     t0 = time.perf_counter()
     card = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_17b_") as ref_dir:
+    cells = (YI_TRAIN_CELL,) + REC_TRAIN_CELLS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as ref_dir:
         with card_memory_peak(card, "peak_gib"):
-            ranks = run_ranks(yi_mesh_rank, math.prod(YI_MESH), "gloo",
+            ranks = run_ranks(mesh_rank, math.prod(YI_MESH), "gloo",
                               MESH_TIMEOUT_S, (ref_dir,))
         res = {"wall_s": time.perf_counter() - t0}
-        # the unsharded training reference, alone on the card
+        # 17c and the unsharded training references, alone on the card
         t1 = time.perf_counter()
         with card_memory_peak(card, "reference_peak_gib"):
-            (ref,) = run_ranks(yi_train_reference, 1, "gloo",
-                               MESH_TIMEOUT_S, (ref_dir,))
-        res["train_reference_s"] = time.perf_counter() - t1
+            (alone,) = run_ranks(unsharded_rank, 1, "nccl",
+                                 MESH_TIMEOUT_S, (ref_dir, cells))
+        res["alone_s"] = time.perf_counter() - t1
+    refs = alone["refs"]
+    res["train_reference_s"] = alone["refs_s"]
+    ref = refs["yi"]
     res.update({"card_peak_gib": card["peak_gib"],
                 "reference_card_peak_gib": card["reference_peak_gib"],
                 "setup_s": [r["setup_s"] for r in ranks],
-                "serve_s": [r["serve_s"] for r in ranks]})
+                "serve_s": [r["serve_s"] for r in ranks],
+                "rank_seconds_17": [r["seconds_17"] for r in ranks],
+                "rank_seconds_18": [r["seconds_18"] for r in ranks]})
     r0 = ranks[0]
     n_sites = YI_LAYERS * 7 + 1
-    for r in ranks:
-        d = r["deferred"]
-        log(f"  rank {r['rank']} {r['coords']}: setup {r['setup_s']:.1f} s; "
-            f"deferred {d['completed']} requests, {d['forwards']} forwards, "
-            f"detect launches {d['detect_launches']}, abft_matmul "
-            f"{d['launches']}, host reads {d['host_reads']}, decode step "
-            f"{d['decode_ms']:.2f} ms; peak {r['serving_peak_gib']:.1f} GiB "
-            f"serving, {r['train_peak_gib']:.1f} GiB training")
-        if d["reasons"] != ["length"] * N_REQ or d["completed"] != N_REQ:
-            fail(f"17a rank {r['rank']}: requests finished {d['reasons']}")
-        c = d["counters"]
-        if c["faults_detected"] or c["dropped"] or d["hits"]:
-            fail(f"17a rank {r['rank']}: clean serving counted {c}")
-        if (d["detect_launches"] != n_sites * d["forwards"] or d["launches"]
-                or d["host_reads"] != d["forwards"]):
-            fail(f"17a rank {r['rank']}: {d['forwards']} forwards launched "
-                 f"{d['detect_launches']} detect / {d['launches']} "
-                 f"abft_matmul with {d['host_reads']} reads; want "
-                 f"{n_sites} detect launches and 1 read each")
-        if r["tokens"] != r0["tokens"]:
-            fail(f"17a: rank {r['rank']}'s tokens differ from rank 0's")
-        pl = r["per_layer"]
-        want = [t[:8] for t in r0["tokens"][:SLOTS]]
-        if pl["tokens"] != want:
-            fail(f"17a rank {r['rank']}: per_layer tokens differ from "
-                 "deferred's")
-        if (pl["launches"] != n_sites * pl["forwards"]
-                or pl["host_reads"] != n_sites * pl["forwards"]):
-            fail(f"17a rank {r['rank']}: per_layer {pl}")
-        dr = r["drill"]
-        by = dr["by_slot"]
-        cd = dr["counters"]
-        tgt = by[dr["target"]]
-        ok = (tgt["faults_detected"] == cd["decode_steps"]
-              and tgt["corrections_applied"] == cd["decode_steps"]
-              and tgt["residuals"] == 0
-              and all(v["faults_detected"] == 0 for sl, v in by.items()
-                      if sl != dr["target"])
-              and cd["faults_unattributed"] == 0
-              and cd["residual_steps"] == 0)
-        if not ok or dr["tokens"] != want:
-            fail(f"17a rank {r['rank']}: wo drill {by} {cd}, tokens equal "
-                 f"{dr['tokens'] == want}")
+    log(f"  setup {[round(r['setup_s'], 1) for r in ranks]} s a rank")
+    _check_mesh_serving("17a", ranks, n_sites, True)
     tf = r0["teacher_forced"]
     un = r0["unsharded"]
     same = sum(a == b for a, b in zip(r0["tokens"], un["tokens"]))
-    log(f"  per_layer on the mesh: {ranks[0]['per_layer']['launches']} "
-        f"abft_matmul launches and as many reads over "
-        f"{ranks[0]['per_layer']['forwards']} forwards, tokens == deferred")
-    log(f"  drill: +1e3 at rank {r0['drill']['rank']}'s row-parallel wo "
-        f"partial, slot {r0['drill']['target']}: "
-        f"{r0['drill']['counters']['faults_detected']} detected / "
-        f"{r0['drill']['counters']['faults_corrected']} corrected over "
-        f"{r0['drill']['counters']['decode_steps']} steps on every rank, "
-        "attributed to its request, tokens == clean")
     log(f"  teacher-forced vs the unsharded unprotected forward: largest "
         f"logit gap {tf['max_logit_gap']:.4g}; served tokens at most "
         f"{tf['max_margin']:.4g} below the top (limit {DELTA}); "
@@ -5054,83 +5589,35 @@ def run_mesh_phase(report) -> dict:
         "per_layer_forwards": r0["per_layer"]["forwards"],
         "host_reads": [r["deferred"]["host_reads"] for r in ranks],
         "teacher_forced": tf, "token_equal_requests": same,
-        "drill": r0["drill"]["counters"],
+        "drill": r0["drills"]["wo"]["counters"],
         "peak_gib": [r["serving_peak_gib"] for r in ranks]}
 
     # -- 17b --------------------------------------------------------------
-    t = r0["train"]
-    loss_gap = [abs(a - b) for a, b in zip(t["losses"], ref["losses"])]
-    half_gap = [abs(a - b) for a, b in zip(ref["half_losses"],
-                                           ref["losses"])]
-    same_gap = [abs(a - b) for a, b in zip(ref["unchanged_losses"],
-                                           ref["losses"][1:])]
-    upd = ref["update_dist"]
-    worst_upd = max(upd, key=upd.get)
-    half_upd = [d for p, d in ref["half_update_dist"].items()
-                if ref["moves"][p]]
-    log(f"  17b: losses {t['losses']} sharded, {ref['losses']} unsharded; "
-        f"|loss gap| {[f'{x:.3g}' for x in loss_gap]} (limit "
-        f"{YI_LOSS_TOL}; controls: half batch "
-        f"{[f'{x:.3g}' for x in half_gap]}, unchanged state "
-        f"{[f'{x:.3g}' for x in same_gap]} after step 0)")
-    log(f"  17b updates: |d_sharded - d_unsharded| / |d_unsharded| at most "
-        f"{upd[worst_upd]:.4g} ({worst_upd}; limit {YI_UPDATE_TOL}); the "
-        f"half-batch control {min(half_upd):.4g}-{max(half_upd):.4g} on the "
-        f"{len(half_upd)} leaves that move (the others stay bitwise: bf16 "
-        "rounds their updates away); an unchanged state reads 1. "
-        f"Per element: |diff| / ({YI_TRAIN_TOL} + {YI_TRAIN_TOL} |p|) "
-        f"{ref['worst_over_tol']:.3g} at {ref['worst_leaf']}")
-    log(f"  17b step ms {[round(x, 1) for x in t['step_ms']]} sharded, "
-        f"{[round(x, 1) for x in ref['step_ms']]} unsharded (alone, "
-        f"{res['train_reference_s']:.1f} s with its controls)")
-    for i, g in enumerate(loss_gap):
-        if not g <= YI_LOSS_TOL:
-            fail(f"17b step {i}: loss {t['losses'][i]} sharded vs "
-                 f"{ref['losses'][i]} unsharded")
-    for p, d in upd.items():
-        if not d <= YI_UPDATE_TOL:
-            fail(f"17b: {p}'s update is {d:.4g} of the unsharded one "
-                 "away from it")
-    if not ref["worst_over_tol"] <= 1.0:
-        fail(f"17b: {ref['worst_leaf']} beyond {YI_TRAIN_TOL}")
-    for r in ranks:
-        if r["train"]["replicated"] != t["replicated"]:
-            fail(f"17b: rank {r['rank']}'s replicated leaves differ from "
-                 "rank 0's")
-        dr = r["train"]["drill"]
-        if not (dr["report"][0] and dr["report"][1] and not dr["report"][2]
-                and dr["clean_report"] == [0, 0, 0]
-                and dr["loss"] == dr["clean_loss"]
-                and dr["params_bitwise"]):
-            fail(f"17b rank {r['rank']}: ffn/up drill {dr}")
-    dr = r0["train"]["drill"]
-    log(f"  17b drill: +1e3 at rank 1's ffn/up shard (forward and "
-        f"recompute): report {dr['report']} on every rank, loss "
-        f"{dr['loss']} == clean {dr['clean_loss']}; new params bitwise the "
-        "clean step's on every rank; replicated leaves bitwise equal "
-        "across ranks")
+    res["training"] = check_mesh_training(
+        "17b", [r["train"] for r in ranks], ref, YI_TRAIN_CELL[4])
+    res["training"]["peak_gib"] = [r["train_peak_gib"] for r in ranks]
+
+    # -- 18 ---------------------------------------------------------------
+    res["rec"] = check_rec_mesh(ranks, refs)
     log(f"  the card's memory in use, every process, at its peak: "
         f"{card['peak_gib']:.1f} GiB on the mesh (limit {MESH_PEAK_GIB}; "
         f"the ranks' own allocated peaks "
-        f"{[round(max(r['serving_peak_gib'], r['train_peak_gib']), 1) for r in ranks]}"
+        f"{[round(max(r['serving_peak_gib'], r['train_peak_gib'], r['rec']['serving_peak_gib'], r['rec']['train_peak_gib']), 1) for r in ranks]}"
         f" GiB, reserved in training "
-        f"{[round(r['train']['reserved_gib'], 1) for r in ranks]}), "
-        f"{card['reference_peak_gib']:.1f} GiB for the reference alone; "
-        f"phase 17a/b {res['wall_s']:.1f} s")
+        f"{[round(max(t['reserved_gib'] for t in [r['train']] + list(r['rec']['train'].values())), 1) for r in ranks]}), "
+        f"{card['reference_peak_gib']:.1f} GiB for the references alone; "
+        f"phases 17a/b and 18 {res['wall_s']:.1f} s (a rank's 17a/b "
+        f"{[round(r['seconds_17'], 1) for r in ranks]} s, 18 "
+        f"{[round(r['seconds_18'], 1) for r in ranks]} s), 17c and the "
+        f"references in one process {res['alone_s']:.1f} s")
     if card["peak_gib"] > MESH_PEAK_GIB:
-        fail(f"phase 17: the card held {card['peak_gib']:.1f} GiB")
-    res["training"] = {"losses": t["losses"], "unsharded": ref,
-                       "step_ms": [r["train"]["step_ms"] for r in ranks],
-                       "drill": r0["train"]["drill"],
-                       "peak_gib": [r["train_peak_gib"] for r in ranks],
-                       "reserved_gib": [r["train"]["reserved_gib"]
-                                        for r in ranks]}
+        fail(f"phases 17-18: the card held {card['peak_gib']:.1f} GiB")
 
     # -- 17c --------------------------------------------------------------
-    log("phase 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's widths in bf16")
-    t0 = time.perf_counter()
-    (c,) = run_ranks(yi_nccl_rank, 1, "nccl", MESH_TIMEOUT_S)
-    res["nccl_s"] = time.perf_counter() - t0
+    log("phase 17c: a (1, 1) NCCL mesh serving yi-9b-smoke's widths in "
+        "bf16 (in the references' process, before them)")
+    c = alone["nccl"]
+    res["nccl_s"] = res["alone_s"] - res["train_reference_s"]
     ok = (c["mesh"]["tokens"] == c["unsharded"]["tokens"]
           and c["mesh"]["counters"] == c["unsharded"]["counters"]
           and c["mesh"]["detect_launches"]
@@ -5218,7 +5705,7 @@ def start_campaign() -> dict:
                 stdout=f, stderr=subprocess.STDOUT, cwd=ROOT)
         procs.append({"part": part, "proc": p, "out": out, "log": logf})
     log(f"phase 8: the campaign, started in {len(procs)} processes "
-        f"beside phases 6-7b: {', '.join(CAMPAIGN_PARTS)}")
+        f"beside phases 4-7b: {', '.join(CAMPAIGN_PARTS)}")
     return {"procs": procs, "t0": time.perf_counter()}
 
 
@@ -5397,21 +5884,26 @@ def main(argv=None) -> int:
     timed("3g", check_kimi_kernels, gen, report)
     log("phase 3h: the kernels at Yi-9B's local shapes on model 2")
     timed("3h", check_yi_shard_kernels, gen, report)
+    log("phase 3i: the kernels at the ssm and rec blocks' local shapes on "
+        "model 2")
+    timed("3i", check_rec_shard_kernels, gen, report)
     # the mesh's ranks are processes of their own that share the card: run
     # them while this process holds little of its memory
     torch.cuda.empty_cache()
-    timed("17", run_mesh_phase, report)
-
-    log("phase 4: the slice")
-    res, slice_ctx = timed("4-5b", run_slice, report)
-    rows = {k["name"]: k for k in kernels}
-    for name in ("checksum_reduce", "abft_matmul"):
-        rows[name]["launches"] = res["per_layer"]["launches"][name]
-        rows[name]["launches_from"] = "phase 4: one clean per_layer forward"
+    timed("17-18", run_mesh_phase, report)
 
     campaign = {}
     try:
+        # the campaign's host-bound trial loops start before phase 4, so
+        # they have finished by the end of 7b on a fast host
         campaign.update(timed("8-start", start_campaign))
+        log("phase 4: the slice")
+        res, slice_ctx = timed("4-5b", run_slice, report)
+        rows = {k["name"]: k for k in kernels}
+        for name in ("checksum_reduce", "abft_matmul"):
+            rows[name]["launches"] = res["per_layer"]["launches"][name]
+            rows[name]["launches_from"] = ("phase 4: one clean per_layer "
+                                           "forward")
         log("phase 6: the serving slice")
         serving, serve_ctx = timed("6-7b", run_serving, report)
         timed("8", run_campaign_phase, report, campaign)

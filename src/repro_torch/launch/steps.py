@@ -92,8 +92,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     the caller's tensors.
 
     `mesh_axes` = (data axes, model axis), e.g. ("data", "model"): the
-    step runs on the ambient mesh (module docstring); the dense blocks
-    only, AdamW only."""
+    step runs on the ambient mesh (module docstring); the attention, ffn,
+    ssm and rec blocks (not moe, whose expert d_ff is placed over 'data'),
+    AdamW only."""
     if mesh_axes is not None:
         M.check_mesh_support(cfg)
         if opt_cfg.kind != "adamw":
@@ -149,18 +150,21 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     sl = slice(i * mb, (i + 1) * mb)
                     l_i, r_i, g_i = one_micro(params, tokens[sl],
                                               labels[sl])
-                    grads = tree_map(lambda a, g: a + g.to(acc_dtype),
+                    # in place: the step owns its accumulators, so one
+                    # tree of them is held, not two
+                    grads = tree_map(lambda a, g: a.add_(g.to(acc_dtype)),
                                      grads, g_i)
+                    del g_i
                     loss, rep = loss + l_i, FaultReport.merge(rep, r_i)
                 loss = loss / microbatches
-                grads = tree_map(lambda g: g / microbatches, grads)
+                grads = tree_map(lambda g: g.div_(microbatches), grads)
             else:
                 loss, rep, grads = one_micro(params, tokens, labels)
 
             if mesh is not None:
                 n = SH.data_index(mesh)[1]
                 loss = _data_sum(loss, mesh) / n
-                grads = tree_map(lambda g: _data_sum(g, mesh) / n, grads)
+                grads = tree_map(lambda g: _data_mean(g, mesh, n), grads)
                 rep = _world_report(rep, mesh)
                 grads, gnorm = _clip_sharded(grads, opt_cfg.grad_clip,
                                              mesh)
@@ -182,6 +186,18 @@ def _data_sum(t, mesh):
     for a in SH.data_axes(mesh):
         t = SH.axis_sum(t, mesh, a)
     return t
+
+
+def _data_mean(g, mesh, n: int):
+    """A gradient summed over the data axes and divided by their ranks:
+    in place for a contiguous fp32 one (the microbatch accumulator, which
+    the step owns: no second copy of the tree is held), as _data_sum(g) /
+    n otherwise; the same values either way."""
+    if g.dtype != F32 or not g.is_contiguous():
+        return _data_sum(g, mesh) / n
+    for a in SH.data_axes(mesh):
+        SH.axis_sum_(g, mesh, a)
+    return g.div_(n)
 
 
 def _data_shard(t, mesh, microbatches: int):
@@ -224,7 +240,9 @@ def _clip_sharded(grads, max_norm: float, mesh):
             rep_sq = rep_sq + sq
     gn = torch.sqrt(rep_sq + SH.axis_sum(sh_sq, mesh, "model"))
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
-    return tree_map(lambda g: g.to(F32) * scale, grads), gn
+    # an fp32 gradient (the step's own) is scaled in place
+    return tree_map(lambda g: g.mul_(scale) if g.dtype == F32
+                    else g.to(F32) * scale, grads), gn
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):

@@ -15,7 +15,14 @@ summed (layers.linear). Where wq shards and wk/wv replicate (the KV heads
 do not divide the axis: yi-9b-smoke's 2 on 4 ranks) every rank computes
 and caches every KV head and attends with the ones its query heads use;
 those replicated weights then enter through Megatron's f, since each rank
-back-propagates only its own heads' share of their gradient."""
+back-propagates only its own heads' share of their gradient.
+
+In a context-parallel scope (parallel_scope(..., context_parallel=True))
+each data rank's cache holds its L/D block of the sequence: a write lands
+only on the rank that owns the position, at its local offset, each rank
+attends its block with the key positions offset by its start, and the
+softmax partials (row max, row sum, weighted values) merge over 'data'
+before the output projection (runtime.sharding.merge_softmax_partials)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -24,7 +31,8 @@ import torch
 
 from ..core import FaultReport, ProtectConfig, merge_verdicts
 from ..core.protected import pick_chunk
-from ..runtime.sharding import copy_to_model, current_parallel
+from ..runtime.sharding import (copy_to_model, current_parallel, data_axes,
+                                data_index, merge_softmax_partials)
 from .linear import apply_dense, init_dense
 from .norms import rms_norm
 from .rotary import apply_rope, rope_tables
@@ -66,8 +74,10 @@ def _mask(kind: str, q_pos, kv_pos, window: int, chunk: int):
 
 
 def _attn_core(q, k, v, q_pos, kv_pos, *, kind, window, chunk,
-               attn_cap: float, q_block: int = 0):
-    """q: (B,Sq,Hkv,G,hd); k/v: (B,Skv,Hkv,hd) -> (B,Sq,Hkv,G,hd)."""
+               attn_cap: float, q_block: int = 0, merge=None):
+    """q: (B,Sq,Hkv,G,hd); k/v: (B,Skv,Hkv,hd) -> (B,Sq,Hkv,G,hd).
+    `merge` (mesh, axes): k/v are this rank's block of a sequence split
+    over `axes`, whose softmax partials are merged over them."""
     b, sq, hkv, g, hd = q.shape
     skv = k.shape[1]
     scale = hd ** -0.5
@@ -85,8 +95,17 @@ def _attn_core(q, k, v, q_pos, kv_pos, *, kind, window, chunk,
             s = attn_cap * torch.tanh(s / attn_cap)
         m = _mask(kind, q_pos[:, i * qb:(i + 1) * qb], kv_pos, window, chunk)
         s = torch.where(m[:, None, None], s, torch.full_like(s, NEG_INF))
-        p = torch.softmax(s, dim=-1)
-        outs.append(torch.einsum("bkgqs,bskh->bqkgh", p, v32))
+        if merge is None:
+            p = torch.softmax(s, dim=-1)
+            outs.append(torch.einsum("bkgqs,bskh->bqkgh", p, v32))
+            continue
+        # this block's partials; a row masked whole weighs nothing
+        mx = torch.amax(s, dim=-1, keepdim=True)
+        p = torch.exp(s - mx) * m[:, None, None]
+        o = torch.einsum("bkgqs,bskh->bkgqh", p, v32)
+        o = merge_softmax_partials(mx, torch.sum(p, dim=-1, keepdim=True),
+                                   o, *merge)
+        outs.append(o.permute(0, 3, 1, 2, 4))
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out.to(q.dtype)
 
@@ -150,27 +169,20 @@ def apply_attention(
 
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
-        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
-            cp = cache_pos.to(x.device)
-            # continuous batching: one new row per slot at its own
-            # position (the same writes as the JAX package's one-hot
-            # masked update)
-            if s != 1:
-                raise ValueError(
-                    "apply_attention: vector cache_pos requires a single "
-                    f"new position per row (got seq len {s})")
-            rows = torch.arange(b, device=x.device)
-            ck[rows, cp] = k[:, 0].to(ck.dtype)
-            cv[rows, cp] = v[:, 0].to(cv.dtype)
-        else:
-            p0 = int(cache_pos)       # a host int: no device read
-            ck[:, p0:p0 + s] = k.to(ck.dtype)
-            cv[:, p0:p0 + s] = v.to(cv.dtype)
-        kv_pos = torch.arange(ck.shape[1], device=x.device)
+        # context parallelism: this rank's block [off, off + L) of the
+        # sequence (the whole of it off a context-parallel scope)
+        off, merge = None, None
+        if par is not None and par.context_parallel:
+            off = data_index(par.mesh)[0] * ck.shape[1]
+            merge = (par.mesh, data_axes(par.mesh))
+        _write_cache(ck, cv, k, v, cache_pos, off)
+        start = off or 0
+        kv_pos = torch.arange(start, start + ck.shape[1], device=x.device)
         ck, cv = _kv_heads(ck, select), _kv_heads(cv, select)
         out = _attn_core(q.reshape(b, s, -1, g, hd), ck, cv, positions,
                          kv_pos, kind=kind, window=cfg.window_size,
-                         chunk=cfg.attn_chunk, attn_cap=cfg.attn_softcap)
+                         chunk=cfg.attn_chunk, attn_cap=cfg.attn_softcap,
+                         merge=merge)
     else:
         kv_pos = positions[0] if positions.shape[0] == 1 else \
             torch.arange(s, device=x.device)
@@ -182,6 +194,44 @@ def apply_attention(
     out = out.reshape(b, s, hq * hd)
     y, r4 = apply_dense(params["wo"], out, abft, name="wo")
     return y, merge_verdicts(rep, r4), cache
+
+
+def _write_cache(ck, cv, k, v, cache_pos, off: Optional[int]) -> None:
+    """Write the new rows into the cache, in place: rows [p0, p0 + S) for
+    a host int position, one row per slot for a (B,) position vector
+    (continuous batching, the same writes as the JAX package's one-hot
+    masked update). `off`: the cache is the block of a context-parallel
+    sequence that starts at that position, and a position outside it is
+    another rank's and is not written (None: the whole sequence)."""
+    b, s = k.shape[:2]
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+        if s != 1:
+            raise ValueError(
+                "apply_attention: vector cache_pos requires a single "
+                f"new position per row (got seq len {s})")
+        cp = cache_pos.to(k.device)
+        rows = torch.arange(b, device=k.device)
+        kn, vn = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        if off is not None:
+            n = ck.shape[1]
+            own = ((cp >= off) & (cp < off + n))[:, None, None]
+            cp = (cp - off).clamp(0, n - 1)
+            # another rank's row rewrites this block's row with itself: no
+            # data-dependent shape, so no device read
+            kn = torch.where(own, kn, ck[rows, cp])
+            vn = torch.where(own, vn, cv[rows, cp])
+        ck[rows, cp] = kn
+        cv[rows, cp] = vn
+        return
+    p0 = int(cache_pos)               # a host int: no device read
+    if off is None:
+        ck[:, p0:p0 + s] = k.to(ck.dtype)
+        cv[:, p0:p0 + s] = v.to(cv.dtype)
+        return
+    lo, hi = max(p0, off), min(p0 + s, off + ck.shape[1])
+    if lo < hi:
+        ck[:, lo - off:hi - off] = k[:, lo - p0:hi - p0].to(ck.dtype)
+        cv[:, lo - off:hi - off] = v[:, lo - p0:hi - p0].to(cv.dtype)
 
 
 def _kv_heads(t, select):

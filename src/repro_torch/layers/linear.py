@@ -14,7 +14,9 @@ leaves its output sharded, and its input enters through Megatron's f (the
 gradient summed over 'model' in the backward); a row-sharded one
 (contraction axis over 'model') protects this rank's partial product and
 sums the partials over 'model' in fp32, rounded once (Megatron's g). A
-replicated weight needs neither."""
+replicated weight needs neither. An input that runtime.sharding
+.gather_from_model made (`gathered=True`) enters a column-sharded weight
+without f: the gather's backward sums its gradient already."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -48,7 +50,8 @@ def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
 
 def apply_dense(params, x: torch.Tensor,
                 cfg: Optional[ProtectConfig] = DEFAULT_CONFIG,
-                wck=None, entry=None, name: str = "w"
+                wck=None, entry=None, name: str = "w",
+                gathered: bool = False
                 ) -> Tuple[torch.Tensor, FaultReport]:
     """y = x @ W (+ b), protected when cfg.enabled. x: (..., d_in).
 
@@ -60,7 +63,7 @@ def apply_dense(params, x: torch.Tensor,
     spec = par.spec(current_path(name) + "/w") if par is not None else ()
     if par is not None and par.tp > 1 and spec:
         w, b = params["w"], params.get("b")
-        if is_sharded(spec[-1:]):
+        if is_sharded(spec[-1:]) and not gathered:
             x = copy_to_model(x, par.mesh)
         if is_sharded(spec[:1]):
             # the bias joins the sum once, on the first model rank

@@ -17,6 +17,14 @@ the gates and the recurrence run in float32, the depthwise conv in the
 type its concatenation gives (as the ssm block's). The recurrent state is
 {"h": (B, W) float32, "conv": (B, K-1, W) bfloat16} as made; the block
 returns a new state and leaves the one it was given as it was.
+
+Under a mesh (runtime.sharding.parallel_scope) the JAX package's rules
+shard the lru width over 'model' in Megatron's column/row pattern: in_x
+and in_gate give this rank's columns, the depthwise conv runs on them
+with this rank's conv tail (B, K-1, W/tp), gate_a and gate_i take the
+whole conv output through one gather_from_model and give local columns,
+`lam` and the state h are local, and `out` is row-parallel (its partials
+summed over 'model' by layers.linear).
 """
 from __future__ import annotations
 
@@ -25,6 +33,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import FaultReport, ProtectConfig, merge_verdicts
+from ..core.plan import current_path
+from ..runtime.sharding import current_parallel, gather_from_model, is_sharded
 from .linear import apply_dense, init_dense
 from .norms import activate
 from .ssm import _causal_conv
@@ -90,8 +100,16 @@ def apply_rglru(params: Dict, x: torch.Tensor, cfg,
     tail = state["conv"] if state is not None else None
     xc, new_tail = _causal_conv(xb, params["conv_w"], tail)
 
-    ra, r3 = apply_dense(params["gate_a"], xc, abft, name="gate_a")
-    ri, r4 = apply_dense(params["gate_i"], xc, abft, name="gate_i")
+    # under a mesh that shards the width, the gates see the whole conv
+    # output and give this rank's columns
+    par = current_parallel()
+    tp = (par is not None and par.tp > 1
+          and is_sharded(par.spec(current_path("lam"))))
+    xg = gather_from_model(xc, par.mesh) if tp else xc
+    ra, r3 = apply_dense(params["gate_a"], xg, abft, name="gate_a",
+                         gathered=tp)
+    ri, r4 = apply_dense(params["gate_i"], xg, abft, name="gate_i",
+                         gathered=tp)
     rep = merge_verdicts(merge_verdicts(rep, r3), r4)
 
     r_t = torch.sigmoid(ra.to(F32))

@@ -18,6 +18,19 @@ the fp32 softplus of dt), and A_log, D and dt_bias are float32 parameters
 in any model. The recurrent state is {"h": (B, H, P, N) float32, "conv":
 (B, K-1, C) bfloat16} as made; the block returns a new state and leaves
 the one it was given as it was.
+
+Under a mesh (runtime.sharding.parallel_scope) the JAX package's rules
+split in_proj's packed [z, x, B, C, dt] columns, conv_w's x|B|C columns
+and out_proj's rows contiguously over 'model', which does not follow the
+block's segments. So in_proj's output is gathered over 'model', the
+depthwise conv runs on this rank's columns of x|B|C with its conv tail
+(B, K-1, C/tp) and its output is gathered too, the SSD scan runs on this
+rank's heads (those of its out_proj rows and of its state h (B, H/tp, P,
+N)) with the whole B and C, the gated RMSNorm sums its fp32 squares over
+'model', and out_proj is row-parallel. A_log, D, dt_bias and norm are
+replicated leaves of which a rank uses its heads' slice: they enter
+through Megatron's f, so each rank's copy gets the gradient summed over
+'model'.
 """
 from __future__ import annotations
 
@@ -26,6 +39,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..core import FaultReport, ProtectConfig, merge_verdicts
+from ..core.plan import current_path
+from ..runtime.sharding import (copy_to_model, current_parallel,
+                                gather_from_model, is_sharded,
+                                reduce_from_model)
 from .linear import apply_dense, init_dense
 from .norms import activate, rms_norm
 
@@ -139,27 +156,79 @@ def _ssd_chunked(xh, dt, a, bmat, cmat, chunk: int, h0=None):
     return y, hcur
 
 
+def _model_shard(params, p: int):
+    """(mesh, first head, heads, first conv column) of this rank's part
+    of the block under a mesh that shards it over 'model'; None off one
+    (or where the rules replicate the block's leaves)."""
+    par = current_parallel()
+    if (par is None or par.tp == 1
+            or not is_sharded(par.spec(current_path("out_proj/w")))):
+        return None
+    rows = params["out_proj"]["w"].shape[0]
+    if rows % p:
+        raise NotImplementedError(
+            f"ssm on {par.tp} model ranks: {rows} out_proj rows a rank do "
+            f"not hold whole heads of {p}")
+    r = par.mesh.index("model")
+    cols = params["conv_w"].shape[-1]
+    c0 = r * cols if is_sharded(par.spec(current_path("conv_w"))) else 0
+    return par.mesh, r * (rows // p), rows // p, c0
+
+
+def _rms_norm_over_model(y, scale, eps: float, width: int, mesh):
+    """layers.norms.rms_norm of rows whose `width` features are split
+    over 'model': the fp32 sums of squares summed over it (their gradient
+    too: every rank's rows depend on the sum)."""
+    y32 = y.to(F32)
+    ss = reduce_from_model(torch.sum(y32 * y32, dim=-1, keepdim=True), mesh)
+    var = copy_to_model(ss, mesh) / width
+    return (y32 * torch.rsqrt(var + eps) * scale.to(F32)).to(y.dtype)
+
+
 def apply_ssm(params: Dict, x: torch.Tensor, cfg,
               abft: Optional[ProtectConfig],
               state: Optional[Dict] = None
               ) -> Tuple[torch.Tensor, FaultReport, Optional[Dict]]:
     """state = {"h": (B,H,P,N), "conv": (B,K-1,C)} for prefill and decode;
     None for the uncached forward (training, teacher forcing). Returns
-    (out, report, new_state); new_state is None without a state."""
+    (out, report, new_state); new_state is None without a state. Under a
+    mesh the state is this rank's (module docstring)."""
     b, s, d = x.shape
     d_inner, h, p, n = _dims(cfg)
+    shard = _model_shard(params, p)
+    a_log, d_skip = params["A_log"], params["D"]
+    dt_bias, norm = params["dt_bias"], params["norm"]
 
     zxbcdt, rep = apply_dense(params["in_proj"], x, abft, name="in_proj")
+    if shard is not None:
+        mesh, h0, hl, c0 = shard
+        if zxbcdt.shape[-1] < 2 * d_inner + 2 * n + h:
+            zxbcdt = gather_from_model(zxbcdt, mesh)
+        a_log, d_skip, dt_bias, norm = (
+            copy_to_model(t, mesh)[sl] for t, sl in (
+                (a_log, slice(h0, h0 + hl)), (d_skip, slice(h0, h0 + hl)),
+                (dt_bias, slice(h0, h0 + hl)),
+                (norm, slice(h0 * p, (h0 + hl) * p))))
     z, xin, bmat, cmat, dt = torch.split(
         zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
-    dt = torch.nn.functional.softplus(dt.to(F32) + params["dt_bias"])
-    a = -torch.exp(params["A_log"])                    # (H,)
+    if shard is not None:
+        z, dt = z[..., h0 * p:(h0 + hl) * p], dt[..., h0:h0 + hl]
+    dt = torch.nn.functional.softplus(dt.to(F32) + dt_bias)
+    a = -torch.exp(a_log)                              # (H,)
 
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
+    conv_w = params["conv_w"]
+    split_conv = shard is not None and conv_w.shape[-1] < conv_in.shape[-1]
+    if split_conv:
+        conv_in = conv_in[..., c0:c0 + conv_w.shape[-1]]
     tail = state["conv"] if state is not None else None
-    conv_out, new_tail = _causal_conv(conv_in, params["conv_w"], tail)
+    conv_out, new_tail = _causal_conv(conv_in, conv_w, tail)
     conv_out = activate(conv_out.to(F32), "silu")
+    if split_conv:
+        conv_out = gather_from_model(conv_out, mesh)
     xc = conv_out[..., :d_inner].reshape(b, s, h, p)
+    if shard is not None:
+        xc = xc[:, :, h0:h0 + hl]
     bc = conv_out[..., d_inner:d_inner + n]
     cc = conv_out[..., d_inner + n:]
 
@@ -189,10 +258,14 @@ def apply_ssm(params: Dict, x: torch.Tensor, cfg,
         y = torch.einsum("bn,bhpn->bhp", cc[:, 0], hnew)[:, None]  # (B,1,H,P)
         hlast = hnew
 
-    y = y + xc * params["D"][None, None, :, None]
-    y = y.reshape(b, s, d_inner)
+    y = y + xc * d_skip[None, None, :, None]
+    y = y.reshape(b, s, -1)
     y = y * activate(z.to(F32), "silu")
-    y = rms_norm(y.to(x.dtype), params["norm"], cfg.norm_eps)
+    if shard is None:
+        y = rms_norm(y.to(x.dtype), norm, cfg.norm_eps)
+    else:
+        y = _rms_norm_over_model(y.to(x.dtype), norm, cfg.norm_eps,
+                                 d_inner, mesh)
     out, r2 = apply_dense(params["out_proj"], y, abft, name="out_proj")
     rep = merge_verdicts(rep, r2)
 

@@ -182,27 +182,36 @@ def init_caches(cfg, batch: int, max_len: int,
                 device: DeviceLike = None, shard_batch: bool = False
                 ) -> Dict:
     """Zero caches of `batch` rows. Under a mesh (parallel_scope) they
-    are this rank's: the KV heads over 'model' as cache_shardings places
-    them and, with `shard_batch`, the rows over the data axes (a
-    session's slots; a batch that does not divide them would take
-    context-parallel decode, ROADMAP item 1.12's later step, and
-    raises)."""
+    are this rank's, placed by cache_shardings: the KV heads over 'model'
+    and the recurrent states' channels or heads over 'model' and, with
+    `shard_batch`, the rows over the data axes (a session's slots). In a
+    context-parallel scope (a session whose slots do not divide the data
+    axes, and its prefills) every data rank holds every row and its L/D
+    block of each KV cache's sequence; the recurrent states then follow
+    cache_shardings' batch-1 placement, replicated over 'data'."""
     par = SH.current_parallel()
     if par is not None:
         with SH.parallel_as(None):
             full = init_caches(cfg, batch, max_len, "meta")
         mesh = par.mesh
-        specs = SH.cache_shardings(full, mesh, batch)
         data = SH.data_axes(mesh)
-
-        if shard_batch and batch % mesh.axis_size(data):
-            raise NotImplementedError(
+        divides = batch % mesh.axis_size(data) == 0
+        if par.context_parallel and divides:
+            raise ValueError(
+                f"context-parallel caches of {batch} rows: the rows divide "
+                f"the data axes ({mesh.axis_size(data)}), shard them instead")
+        if shard_batch and not (divides or par.context_parallel):
+            raise ValueError(
                 f"{batch} cache rows on a data axis of "
-                f"{mesh.axis_size(data)}: context-parallel decode is not "
-                "ported yet (ROADMAP item 1.12)")
+                f"{mesh.axis_size(data)}: run them in a context-parallel "
+                "scope (parallel_scope(..., context_parallel=True))")
+        specs = SH.cache_shardings(full, mesh, batch)
 
         def local(t, spec):
-            if not shard_batch:
+            if not (shard_batch or par.context_parallel):
+                # a batch-1 prefill's caches off context parallelism: the
+                # rows replicated, as GSPMD runs a batch 'data' does not
+                # divide
                 spec = tuple(None if any(SH.is_sharded((n,), a)
                                          for a in data) else n
                              for n in spec)
@@ -439,12 +448,13 @@ def _forward(params, tokens, cfg, *, caches=None, cache_pos=None,
 
 def check_mesh_support(cfg) -> None:
     """Raise for what the mesh does not run yet: the port shards the
-    dense blocks (attention and ffn) and single-codebook I/O; the moe,
-    ssm and rec families and multi-codebook models under a mesh are
-    ROADMAP item 1.12's later steps."""
+    attention, ffn, ssm and rec blocks and single-codebook I/O; the moe
+    family (its expert d_ff is placed over 'data', FSDP) and
+    multi-codebook models under a mesh are ROADMAP item 1.12's later
+    steps."""
     pattern, _, rem = cfg.stages()
     kinds = set(cfg.prefix_pattern) | set(pattern) | set(rem)
-    other = sorted(kinds - set(ATTN_KINDS) - {"ffn"})
+    other = sorted(kinds - set(ATTN_KINDS) - {"ffn", "ssm", "rec"})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} blocks under a mesh are not "

@@ -85,13 +85,30 @@ def apply_updates(params, grads, state, cfg: OptConfig, lr
         bc2 = 1.0 - b2 ** step.to(F32)
 
         def upd(p, g, m, v):
+            # the reference's arithmetic, op for op (each product in the
+            # same operands, each sum in the same order), with the
+            # full-size fp32 temporaries reused as soon as they are spent
+            # (a vocabulary table's fp32 copies are GBs each)
             g = g.to(F32)
-            m32 = b1 * m.to(F32) + (1 - b1) * g
-            v32 = b2 * v.to(F32) + (1 - b2) * g * g
-            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-            u = u + cfg.weight_decay * p.to(F32)
-            newp = p.to(F32) - lr * u
-            return newp.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
+            t = g * (1 - b1)
+            m32 = m.to(F32) * b1
+            m32.add_(t)
+            torch.mul(g, 1 - b2, out=t)
+            t.mul_(g)
+            v32 = v.to(F32) * b2
+            v32.add_(t)
+            torch.div(v32, bc2, out=t)
+            t.sqrt_().add_(cfg.eps)
+            u = m32 / bc1
+            u.div_(t)
+            t.copy_(p)                   # p in fp32, exactly
+            t.mul_(cfg.weight_decay)
+            u.add_(t)
+            u.mul_(lr)
+            t.copy_(p)
+            torch.sub(t, u, out=u)
+            del t
+            return u.to(p.dtype), m32.to(m.dtype), v32.to(v.dtype)
 
         out = tree_map(upd, params, grads, state["m"], state["v"])
         pick = lambda i: tree_map(lambda _, t: t[i], params, out)

@@ -17,9 +17,12 @@ PartitionSpec as a tuple). The rule functions compute specs only, for any
 mesh; the port executes them with rank-local tensors: `shard_tree` cuts a
 full tree into this rank's shards, `unshard_tree` rebuilds it, and every
 layer that needs a collective finds it from its leaf's spec through
-`parallel_scope`. Executing the FSDP (`fsdp=True`) placement, and caches
-whose batch does not divide the data axes (context-parallel decode), are
-ROADMAP item 1.12's later steps and raise.
+`parallel_scope`. A cache leaf may be sharded over the data axes too:
+caches whose batch does not divide them split the sequence of each KV
+cache over 'data' (context-parallel decode, `parallel_scope(...,
+context_parallel=True)`), and each rank's attention partials are merged
+over 'data' (`merge_softmax_partials`). Executing the FSDP (`fsdp=True`)
+placement of params is ROADMAP item 1.12's later step and raises.
 
 The collectives use `all_reduce` only, on fp32 or int64 tensors: per PyTorch's backend table those are what gloo runs on
 CUDA tensors, so the same code runs a gloo mesh whose ranks share one card
@@ -256,14 +259,19 @@ def _axes_of(name) -> Tuple[str, ...]:
     return tuple(name) if isinstance(name, tuple) else (name,)
 
 
-def _check_executable(spec: Spec, mesh, what: str) -> None:
+def _check_executable(spec: Spec, mesh, what: str,
+                      cache: bool = False) -> None:
+    """Raise for a param spec sharded over an axis other than 'model' (a
+    cache leaf may be sharded over the data axes too)."""
+    if cache:
+        return
     for name in spec:
         for a in _axes_of(name):
             if a != "model" and mesh.shape.get(a, 1) > 1:
                 raise NotImplementedError(
-                    f"{what}: a spec sharded over {a!r} ({spec}) is not "
-                    "executed yet: FSDP placement and context-parallel "
-                    "caches are ROADMAP item 1.12's later steps")
+                    f"{what}: a param spec sharded over {a!r} ({spec}) is "
+                    "not executed yet: FSDP placement is ROADMAP item "
+                    "1.12's later step")
 
 
 def shard_slices(spec: Spec, shape, mesh) -> Tuple[slice, ...]:
@@ -299,31 +307,33 @@ def _flat_spec_items(tree, prefix):
         yield "/".join(prefix), tree
 
 
-def shard_tree(tree, specs, mesh):
+def shard_tree(tree, specs, mesh, cache: bool = False):
     """This rank's local tensors of a full tree (each a contiguous copy
     on the mesh's device, or the leaf itself when it is replicated and
-    already there)."""
+    already there). `cache`: a tree of caches (cache_shardings' specs),
+    whose KV sequence may be sharded over 'data'; a param tree's specs
+    shard over 'model' only."""
     fs = flat_specs(specs)
     out = []
     for path, leaf in tree_flatten_with_path(tree):
         spec = fs[path]
-        _check_executable(spec, mesh, path)
+        _check_executable(spec, mesh, path, cache)
         sl = shard_slices(spec, tuple(leaf.shape), mesh)
         t = leaf[sl] if any(s is not None for s in spec) else leaf
         out.append(t.to(mesh.device).contiguous())
     return tree_unflatten(tree, out)
 
 
-def unshard_tree(tree, specs, mesh):
+def unshard_tree(tree, specs, mesh, cache: bool = False):
     """The full tree back from every rank's local tensors: each rank puts
     its block into zeros of the full shape and the blocks are summed over
     the axes the leaf is sharded on (exact: every element has one
-    non-zero term)."""
+    non-zero term). `cache` as in shard_tree."""
     fs = flat_specs(specs)
     out = []
     for path, leaf in tree_flatten_with_path(tree):
         spec = fs[path]
-        _check_executable(spec, mesh, path)
+        _check_executable(spec, mesh, path, cache)
         if not any(s is not None for s in spec):
             out.append(leaf)
             continue
@@ -368,6 +378,15 @@ def axis_sum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if w.data_ptr() == t.data_ptr():
         w = w.clone()
     return _all_reduce(w, mesh, axis, dist.ReduceOp.SUM).to(t.dtype)
+
+
+def axis_sum_(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """axis_sum in place, for a contiguous fp32 or int64 `t`."""
+    if mesh is None or mesh.axis_size(axis) == 1:
+        return t
+    if t.dtype != _wire_dtype(t.dtype) or not t.is_contiguous():
+        raise ValueError("axis_sum_ takes a contiguous fp32 or int64 tensor")
+    return _all_reduce(t, mesh, axis, dist.ReduceOp.SUM)
 
 
 def axis_max(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -423,6 +442,24 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather over 'model' along one dim forward; backward, the
+    gradient summed over 'model' and this rank's slice taken (each rank's
+    consumers of the gathered tensor use their own shards of the weights
+    after it, so each holds a partial gradient of the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.step = mesh, dim, x.shape[dim]
+        return axis_gather(x, mesh, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = axis_sum(g, ctx.mesh, "model")
+        i = ctx.mesh.index("model")
+        return g.narrow(ctx.dim, i * ctx.step, ctx.step), None, None
+
+
 def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if (mesh is None or mesh.axis_size("model") == 1
             or not (torch.is_grad_enabled() and x.requires_grad)):
@@ -438,14 +475,47 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mesh)
 
 
+def gather_from_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """Every model rank's `x` concatenated on `dim` in rank order; its
+    gradient is summed over 'model' and sliced back (_GatherFromModel).
+    A dense layer fed by it takes `gathered=True`: no second sum."""
+    if mesh is None or mesh.axis_size("model") == 1:
+        return x
+    dim = dim % x.dim()
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return axis_gather(x, mesh, "model", dim)
+    return _GatherFromModel.apply(x, mesh, dim)
+
+
+def merge_softmax_partials(m: torch.Tensor, l: torch.Tensor,
+                           o: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The softmax-weighted values over a sequence split across `axes`
+    (the data axes of context-parallel decode), from each rank's partials
+    on its block: the row max `m` (..., 1), the row sum of exp(s - m) `l`
+    (..., 1) and the values weighted by it `o` (..., hd), all fp32. A
+    rank whose block is masked whole gives l = 0 and o = 0 and a max at
+    the mask's floor, so its rescale exp(m - max) is 0: no NaN. The sums
+    run in fp32, one all_reduce for l and o together."""
+    gm = m
+    for a in axes:
+        gm = axis_max(gm, mesh, a)
+    scale = torch.exp(m - gm)
+    lo = torch.cat([l * scale, o * scale], dim=-1)
+    for a in axes:
+        lo = axis_sum(lo, mesh, a)
+    return lo[..., 1:] / lo[..., :1]
+
+
 # --------------------------------------------------------------------------
 # the ambient mesh: layers find their leaf's spec by its param-tree path
 # --------------------------------------------------------------------------
 
 class _Parallel:
-    def __init__(self, mesh, specs: Dict[str, Spec]):
+    def __init__(self, mesh, specs: Dict[str, Spec],
+                 context_parallel: bool = False):
         self.mesh = mesh
         self.specs = specs
+        self.context_parallel = context_parallel
 
     def spec(self, path: str) -> Spec:
         """The spec of the leaf at `path` as the layer sees it: a stage
@@ -465,12 +535,19 @@ _PAR: contextvars.ContextVar[Optional[_Parallel]] = \
 
 
 @contextlib.contextmanager
-def parallel_scope(mesh, specs) -> Iterator[_Parallel]:
+def parallel_scope(mesh, specs, context_parallel: bool = False
+                   ) -> Iterator[_Parallel]:
     """Run the scope's forwards on `mesh` with params placed by `specs`
     (param_shardings' tree): each layer reads its leaf's spec by the
     param-tree path of core.plan.path_scope and adds the collective the
-    spec requires."""
-    token = _PAR.set(_Parallel(mesh, flat_specs(specs)))
+    spec requires. `context_parallel`: the caches' rows are replicated
+    over the data axes and each KV cache's sequence is split over them
+    (models.transformer.init_caches makes them so; attention writes and
+    attends its own block and merges over 'data')."""
+    if context_parallel and mesh.axis_size(data_axes(mesh)) == 1:
+        raise ValueError("context-parallel caches need a data axis of "
+                         "more than one rank")
+    token = _PAR.set(_Parallel(mesh, flat_specs(specs), context_parallel))
     try:
         yield _PAR.get()
     finally:

@@ -41,25 +41,32 @@ the next tokens left on the device) and a host half (`_host_decode`, then
 eviction). The session runs them back to back; serving.driver's
 ServingDriver runs the host half of step N after launching step N+1.
 
-With `mesh=` (a launch.mesh.Mesh; the dense blocks only) the session is
-one of the mesh's ranks, and every rank runs it on the same submissions:
+With `mesh=` (a launch.mesh.Mesh; the attention, ffn, ssm and rec
+blocks) the session is one of the mesh's ranks, and every rank runs it on
+the same submissions:
 - the params are cut to this rank's shards by runtime.sharding's rules
   (and what `restore_fn` returns, likewise), the plan by
   ProtectionPlan.shard, and every forward runs in the mesh's
   parallel_scope;
-- the slots split over the data axes, the KV heads over 'model'. A
-  decode step runs this data rank's slots; its next tokens, its
-  localizer's hits and the verdict are gathered (the verdict max-reduced)
-  over the world, so every rank's scheduler sees every slot;
+- the slots split over the data axes, the KV heads and the recurrent
+  states' channels or heads over 'model'. A decode step runs this data
+  rank's slots; its next tokens, its localizer's hits and the verdict
+  are gathered (the verdict max-reduced) over the world, so every rank's
+  scheduler sees every slot;
 - a prefill runs on every data rank and only the slot's owner writes it
   into its caches, as GSPMD runs a batch of 1 that 'data' does not
   divide;
+- slots that do not divide the data axes (one long prompt) take
+  context-parallel decode: every data rank runs every slot, prefill and
+  decode replicated over 'data', and holds its L/D block of each KV
+  cache's sequence; only the KV writes and the attention's softmax merge
+  are split (layers.attention);
 - the deferred workflow's one read is max-reduced over the world
   (core.workflow.host_read_world), so every rank reruns together;
 - an audit checks this rank's shards against its local plan, repairs a
   damaged block in place on its rank, and the verdict is reduced.
-Context-parallel decode (slots that do not divide the data axes) and the
-other block families under a mesh are ROADMAP item 1.12's later steps.
+The moe family and multi-codebook models under a mesh are ROADMAP item
+1.12's later steps.
 """
 from __future__ import annotations
 
@@ -121,6 +128,7 @@ class ProtectedSession:
         self.mesh = mesh
         self._specs = None
         self._slot0, self._local_slots = 0, slots
+        self._cp = False
         if mesh is not None:
             if not isinstance(mesh, Mesh):
                 raise TypeError("ProtectedSession(mesh=...) takes a "
@@ -131,10 +139,13 @@ class ProtectedSession:
                 raise ValueError(f"the mesh's ranks run on {mesh.device}, "
                                  f"not {device}")
             device = mesh.device
-            # slots that do not divide the data axes: init_caches raises
             di, n_data = SH.data_index(mesh)
-            self._local_slots = slots // n_data
-            self._slot0 = di * self._local_slots
+            # slots that do not divide the data axes: context parallelism,
+            # every data rank runs every slot
+            self._cp = slots % n_data != 0
+            if not self._cp:
+                self._local_slots = slots // n_data
+                self._slot0 = di * self._local_slots
             self._specs = SH.param_shardings(params, mesh, cfg)
             params = SH.shard_tree(params, self._specs, mesh)
             if plan is not None:
@@ -186,7 +197,8 @@ class ProtectedSession:
     def _scope(self):
         if self.mesh is None:
             return contextlib.nullcontext()
-        return SH.parallel_scope(self.mesh, self._specs)
+        return SH.parallel_scope(self.mesh, self._specs,
+                                 context_parallel=self._cp)
 
     def _world_stats(self, rep) -> np.ndarray:
         """The (detected, corrected_by, residual) verdict as host ints,
@@ -233,10 +245,11 @@ class ProtectedSession:
         (detected, corrected_by, residual) verdict as host ints (the
         deferred workflow reads its flags inside the forward). Under a
         mesh it runs this data rank's slots, and the tokens and hits come
-        back gathered over the world."""
+        back gathered over the world (every data rank's already, under
+        context parallelism)."""
         hit = None
         mesh = self.mesh
-        if mesh is not None:
+        if mesh is not None and not self._cp:
             rows = slice(self._slot0, self._slot0 + self._local_slots)
             tokens, positions = tokens[rows], positions[rows]
         with torch.no_grad(), fp32_ieee(), self._scope():
@@ -266,7 +279,7 @@ class ProtectedSession:
                     correction=self.correction)
                 stats = self._world_stats(rep)
             nxt = self._argmax(logits)
-            if mesh is not None:
+            if mesh is not None and not self._cp:
                 # one gather over the world carries the tokens and the hits
                 b = nxt.shape[0]
                 cols = [nxt.reshape(b, -1).to(torch.int64)]

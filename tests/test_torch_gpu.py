@@ -1514,3 +1514,37 @@ def test_two_rank_mesh_serves_on_the_card(cuda_device):
         assert res["detect_launches"] == 15 * res["forwards"] > 0
         assert res["reads_per_forward"] == 1.0
         assert res["faults_clean"] == 0
+
+
+def test_two_rank_mesh_serves_the_recurrent_smokes_on_the_card(cuda_device):
+    """A (1, 2) gloo mesh of two ranks sharing the card serves
+    mamba2-1.3b-smoke and recurrentgemma-2b-smoke in bf16 with the
+    kernels pinned: every rank's detect kernel launches at every site of
+    its local shards (in_proj's 148 columns, the rec widths' 32), one read
+    per forward, the unsharded session's tokens; a +1e3 drill at the last
+    rank's in_proj or gate_a shard is corrected on both ranks."""
+    import torch_mesh_ranks as R
+    from repro_torch.launch.mesh import run_ranks
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n) for n in (10, 12, 3)]
+    cases = [{"arch": arch, "dtype": "bfloat16", "prompts": prompts,
+              "slots": 2, "max_len": 24, "gen": 4, "unsharded": True,
+              "drill": drill, "drill_row": arch.startswith("recurrent"),
+              "table_scale": 1 / 16 if arch.startswith("recurrent")
+              else None}
+             for arch, drill in (
+                 ("mamba2-1.3b-smoke", "stages/b0_ssm/ssm/in_proj"),
+                 ("recurrentgemma-2b-smoke", "stages/b0_rec/rec/gate_a"))]
+    ranks = run_ranks(R.recurrent_rank, 2, "gloo", 300,
+                      (1, 2, "gloo", "cuda", cases))
+    for res in ranks:
+        for case in res["cases"]:
+            assert case["tokens"] == case["tokens_ref"]
+            assert case["detect_launches"] == \
+                case["sites"] * case["forwards"] > 0
+            assert case["reads_per_forward"] == 1.0
+            assert case["counters"]["faults_detected"] == 0
+            c = case["drill"]["counters"]
+            assert (c["faults_detected"], c["faults_corrected"]) == (1, 1)
+            assert c["residual_steps"] == 0
+            assert case["drill"]["tokens"] == case["tokens"]

@@ -269,3 +269,143 @@ def test_allreduce_compressed_matches_jax(sharded_plans):
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(got_err, np.asarray(err)[rank],
                                    rtol=1e-6, atol=1e-7)
+
+
+# --------------------------------------------------------------------------
+# context-parallel caches executed on gloo ranks
+# --------------------------------------------------------------------------
+
+CP_MESHES = {"2x2": (2, 2), "2x1": (2, 1)}
+CP_ARCHS = ("yi-9b-smoke", "recurrentgemma-2b-smoke", "mamba2-1.3b-smoke")
+
+
+@pytest.fixture(scope="module")
+def cp_caches(tmp_path_factory):
+    """cp_cache_rank's results on the (2, 2) and (2, 1) meshes, once per
+    pytest run."""
+    def build():
+        return {name: run_ranks(R.cp_cache_rank, d * m, "gloo", JOIN_S,
+                                (d, m))
+                for name, (d, m) in CP_MESHES.items()}
+    return shared_reference(tmp_path_factory, "sharding_cp_caches", build)
+
+
+def _cp_local_shape(path: str, shape, d: int, m: int):
+    """A context-parallel cache leaf's shape on one rank: the KV sequence
+    over 'data' and its heads over 'model' where they divide; the rec
+    width and the ssm heads and conv channels over 'model'; every row on
+    every rank."""
+    lead = 1 if path.startswith("stages/") else 0
+    out = list(shape)
+    name = path.rsplit("/", 1)[-1]
+    if name in ("k", "v"):
+        out[lead + 1] //= d
+        if out[lead + 2] % m == 0:
+            out[lead + 2] //= m
+    elif name == "h":
+        out[lead + 1] //= m
+    elif name == "conv":
+        out[lead + 2] //= m
+    return out
+
+
+@pytest.mark.parametrize("mesh_name", sorted(CP_MESHES))
+def test_context_parallel_cache_shapes(cp_caches, mesh_name):
+    """init_caches in a context-parallel scope, for a session's 3 slots
+    and a batch-1 prefill, and shard_tree of full batch-1 caches under
+    cache_shardings: every rank holds every row and its L/D block of each
+    KV cache's sequence (12 of 24), with the heads, the rec width and the
+    ssm heads and channels over 'model' as the rules place them."""
+    d, m = CP_MESHES[mesh_name]
+    for res in cp_caches[mesh_name]:
+        for arch in CP_ARCHS:
+            cfg = TCF.get(arch)
+            for rows in (3, 1):
+                full = SH.flat_specs(TM.init_caches(cfg, rows, R.MAX_LEN,
+                                                    device="meta"))
+                got = res["shapes"][f"{arch}/{rows}"]
+                assert sorted(got) == sorted(full)
+                for path, t in full.items():
+                    assert got[path] == _cp_local_shape(path, t.shape, d,
+                                                        m), (arch, path)
+                if rows == 1:
+                    assert res["local_shapes"][arch] == got
+
+
+@pytest.mark.parametrize("mesh_name", sorted(CP_MESHES))
+def test_context_parallel_caches_round_trip(cp_caches, mesh_name):
+    """shard_tree then unshard_tree of full batch-1 caches (cache=True)
+    gives the caches back bitwise on every rank."""
+    for res in cp_caches[mesh_name]:
+        assert all(res["round_trip"][a] for a in CP_ARCHS)
+
+
+@pytest.mark.parametrize("mesh_name", sorted(CP_MESHES))
+def test_data_sharded_param_spec_still_raises(cp_caches, mesh_name):
+    """The cache path executes 'data'-axis specs for caches only: a param
+    tree placed with fsdp=True, and a cache tree with KV caches taken as
+    params, raise NotImplementedError naming FSDP placement and ROADMAP
+    item 1.12 (mamba2's caches, with no KV, shard over 'model' only); a
+    context-parallel scope refuses rows that divide the data axes."""
+    for res in cp_caches[mesh_name]:
+        for arch in CP_ARCHS:
+            ref = res["refused"]
+            kv = arch != "mamba2-1.3b-smoke"
+            assert (ref[f"{arch}/cache_as_params"] is None) == (not kv)
+            for what in ("fsdp_params",) + (("cache_as_params",) if kv
+                                            else ()):
+                msg = ref[f"{arch}/{what}"]
+                assert msg and msg.startswith("NotImplementedError"), msg
+                assert "FSDP" in msg and "1.12" in msg, msg
+            assert ref[f"{arch}/dividing_rows"].startswith("ValueError")
+
+
+class _ModelRank:
+    """The one thing _shard_entry asks of a mesh: this rank's index on
+    'model'."""
+
+    def __init__(self, r: int):
+        self.r = r
+
+    def index(self, axis: str) -> int:
+        return self.r
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_shard_entry_at_mamba2_full_width_shards(tp):
+    """ProtectionPlan.shard's per-entry cut at Mamba2-1.3B's full widths
+    in bf16: in_proj (2048 x 8512, the plan's 608-wide chunks) is sliced
+    at model 2 (4256 columns, 7 chunks) and re-encoded at model 4 (2128
+    columns straddle a chunk: 532-wide chunks of the shard); out_proj
+    (4096 x 2048, row-sharded) keeps its 1024-wide column chunks with
+    this rank's K slice and re-encodes its column locators. Every rank's checksums
+    and locator sums equal those encoded from its own shard, bitwise."""
+    from repro_torch.core import checksums as C
+    from repro_torch.core.plan import _shard_entry, matmul_entry
+    from repro_torch.core.protected import weight_checksums_matmul
+    from repro_torch.core.types import ProtectConfig
+    cfg = ProtectConfig()
+    g = torch.Generator().manual_seed(0)
+    for name, (k, m), spec in (("in_proj", (2048, 8512), (None, "model")),
+                               ("out_proj", (4096, 2048), ("model", None))):
+        w = (torch.randn((k, m), generator=g) * k ** -0.5).to(torch.bfloat16)
+        e = matmul_entry(name, w, cfg)
+        if name == "in_proj":
+            assert e.wck.col_chunk == 608
+        for r in range(tp):
+            if spec[1]:
+                local = w[:, r * m // tp:(r + 1) * m // tp]
+            else:
+                local = w[r * k // tp:(r + 1) * k // tp]
+            got = _shard_entry(e, spec, local, _ModelRank(r))
+            want_cb = (1024 if name == "out_proj" else
+                       608 if tp == 2 else 532)
+            want = weight_checksums_matmul(local, want_cb)
+            wl = C.weight_locators_matmul(local, want_cb)
+            assert got.wck.col_chunk == got.wlc.cb == want_cb
+            assert torch.equal(got.wck.cw1, want.cw1), (name, tp, r)
+            assert torch.equal(got.wck.cw2, want.cw2), (name, tp, r)
+            for a, b in zip(got.wlc[:4], wl[:4]):
+                assert np.array_equal(np.asarray(a), np.asarray(b)), \
+                    (name, tp, r)
+            assert tuple(got.w_shape) == tuple(local.shape)

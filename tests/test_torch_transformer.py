@@ -282,8 +282,8 @@ def test_unported_blocks_name_their_roadmap_item():
     """moe blocks (kimi-k2) build, plan and train now
     (tests/test_torch_moe.py and tests/test_torch_train_blocks.py hold
     them to the JAX package); what is left of their training, the sharded
-    step (the mesh runs the dense blocks only), raises naming its ROADMAP
-    item."""
+    step (the mesh runs the attention, ffn, ssm and rec blocks), raises
+    naming its ROADMAP item."""
     from repro_torch.launch import steps as TST
     from repro_torch.optim import OptConfig
     cfg = TCF.get("kimi-k2-1t-a32b-smoke")

@@ -305,3 +305,260 @@ def _train(mesh, cfg, train_in, device):
                       "loss": float(dm["loss"]),
                       "params": {p: _np(t) for p, t in
                                  tree_flatten_with_path(dfull)}}}
+
+
+# --------------------------------------------------------------------------
+# the ssm and rec families and context-parallel decode
+# (test_torch_distributed_recurrent.py, test_torch_gpu.py)
+# --------------------------------------------------------------------------
+
+def _case_model(case, device):
+    """(cfg, params) of a case dict: `arch`, optional `layers`, `dtype`,
+    `np_params` (None: the port's seed-0 params) and `table_scale` (the
+    tied table scaled, as the rec tests' references scale it)."""
+    import repro_torch.configs as TCF
+    from repro_torch.models import transformer as TM
+    cfg = TCF.get(case["arch"])
+    if case.get("layers"):
+        cfg = cfg.replace(num_layers=case["layers"])
+    if case.get("dtype"):
+        cfg = cfg.replace(dtype=case["dtype"])
+    if case.get("np_params") is None:
+        params = TM.init_params(cfg, device=device)
+        if case.get("table_scale"):
+            params["embed"]["table"] = (params["embed"]["table"]
+                                        * case["table_scale"])
+    else:
+        params = TM.params_from_numpy(case["np_params"], device=device)
+    return cfg, params
+
+
+def _session(params, cfg, plan, case, mesh, device, hook_step=None,
+             hook=None):
+    """_serve with the case's slots, cache length and new tokens."""
+    from repro_torch.core import injection as inj
+    from repro_torch.core import workflow as WF
+    from repro_torch.serving import ProtectedSession
+    s = ProtectedSession(params, cfg, plan, slots=case["slots"],
+                         max_len=case["max_len"], mesh=mesh,
+                         device=None if mesh is not None else device)
+    rids = [s.submit(p, case["gen"]) for p in case["prompts"]]
+    r0 = WF.HOST_READS
+    i = 0
+    while True:
+        with (inj.fault_scope(*hook) if hook is not None and i == hook_step
+              else contextlib.nullcontext()):
+            busy = s.step()
+        i += 1
+        if not busy:
+            break
+    c = dict(s.stats.counters)
+    return {"tokens": [s.tokens_for(r) for r in rids],
+            "reads_per_forward": (WF.HOST_READS - r0)
+            / (c["prefills"] + c["decode_steps"]),
+            "forwards": c["prefills"] + c["decode_steps"], "counters": c,
+            "per_request": [s.stats.record(r).faults_detected
+                            for r in rids]}, s
+
+
+def recurrent_rank(rank: int, data: int, model: int, backend: str,
+                   device: str, cases=(), cp_cases=(), train_cases=()):
+    """One rank's view of the ssm and rec families on the mesh and of
+    context-parallel decode, as host values.
+
+    Each of `cases` (dicts: the model as _case_model takes it, `prompts`,
+    `slots`, `max_len`, `gen`, `drill` a site path or None, `drill_row`:
+    the drill spans the site's whole local output row) gives the
+    deferred session's tokens, reads per forward and detect launches on
+    the mesh, with `unsharded` the unsharded session's tokens beside
+    them, the forward's logits gathered over the mesh against the
+    unsharded forward's, and a +1e3 drill at the site's output on the
+    mesh's last rank in the decode step after the admissions. Each of
+    `cp_cases` (slots that do not divide the data axes) gives the
+    session's tokens, the local shapes of its caches, and the logits of
+    a context-parallel prefill of the first prompt and `gen` decode steps
+    against the unsharded ones (their gap, whether all are finite). Each
+    of `train_cases` (`arch`, `state` and `batch` as numpy, `lr`,
+    `microbatches`) gives one sharded AdamW step's loss, its params
+    gathered, and a digest of each replicated leaf."""
+    import repro_torch.core as tcore
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.kernels import abft_matmul as AM
+    from repro_torch.models import transformer as TM
+    from repro_torch.runtime import sharding as SH
+    mesh = _mesh(data, model, backend, device)
+    out = {"cases": [], "cp": [], "train": []}
+    for case in cases:
+        cfg, params = _case_model(case, device)
+        plan = tcore.build_plan(params, cfg, batch=case["slots"],
+                                seq=case["max_len"], device=device)
+        if device != "cpu":
+            plan = tcore.force_fused_matmul(plan)
+        reps = cfg.stages()[1]
+        res = {"sites": sum(reps if e.stack else 1
+                            for e in plan.entries.values())}
+        if case.get("unsharded"):
+            res["tokens_ref"] = _session(params, cfg, plan, case, None,
+                                         device)[0]["tokens"]
+        AM.DETECT_LAUNCHES = 0
+        res.update(_session(params, cfg, plan, case, mesh, device)[0])
+        res["detect_launches"] = AM.DETECT_LAUNCHES
+        n = min(len(p) for p in case["prompts"])
+        toks = torch.as_tensor(np.stack([p[:n] for p in
+                                         (case["prompts"] * 4)[:4]]),
+                               device=device)
+        specs = SH.param_shardings(params, mesh, cfg)
+        local = SH.shard_tree(params, specs, mesh)
+        with torch.no_grad():
+            want = TM.forward_train(params, toks, cfg)[0]
+            b = toks.shape[0] // mesh.axis_size("data")
+            r = mesh.index("data")
+            with SH.parallel_scope(mesh, specs):
+                lg = TM.forward_train(local, toks[r * b:(r + 1) * b],
+                                      cfg)[0]
+            lg = SH.axis_gather(SH.axis_gather(lg, mesh, "model", -1),
+                                mesh, "data", 0)
+        res["logits_gap"] = float((lg.float() - want.float()).abs().max())
+        res["logits_scale"] = float(want.float().abs().max())
+        if case.get("drill"):
+            last = mesh.size - 1
+            local_slots = case["slots"] // mesh.axis_size("data")
+            cols = slice(None) if case.get("drill_row") else 3
+
+            def hook(o):
+                if (o.dim() == 3 and o.shape[0] == local_slots
+                        and o.shape[1] == 1):
+                    o = o.clone()
+                    o[0, 0, cols] += 1e3
+                return o
+
+            dr = _session(params, cfg, plan, case, mesh, device,
+                          hook_step=2,
+                          hook=(case["drill"], hook) if rank == last
+                          else None)[0]
+            dr["slot"] = mesh.index("data") * local_slots
+            res["drill"] = dr
+        out["cases"].append(res)
+
+    for case in cp_cases:
+        cfg, params = _case_model(case, device)
+        plan = tcore.build_plan(params, cfg, batch=case["slots"],
+                                seq=case["max_len"], device=device)
+        res, sess = _session(params, cfg, plan, case, mesh, device)
+        res["cache_shapes"] = {p: list(t.shape) for p, t in
+                               tree_flatten_with_path(sess._caches)}
+        del sess
+        # a context-parallel prefill and decode of the first prompt
+        specs = SH.param_shardings(params, mesh, cfg)
+        local = SH.shard_tree(params, specs, mesh)
+        ucfg = cfg.replace(abft=False)
+        prompt = torch.as_tensor(case["prompts"][0], device=device)[None]
+        gaps, finite = [], True
+        with torch.no_grad():
+            lu, _, cu = TM.prefill(params, prompt, ucfg, case["max_len"])
+            with SH.parallel_scope(mesh, specs, context_parallel=True):
+                ls, _, cs = TM.prefill(local, prompt, ucfg, case["max_len"])
+            pos = prompt.shape[1]
+            for _ in range(case["gen"]):
+                ls = SH.axis_gather(ls, mesh, "model", -1)
+                gaps.append(float((ls.float() - lu.float()).abs().max()))
+                finite = finite and bool(torch.isfinite(ls).all())
+                nxt = torch.argmax(lu, dim=-1)
+                lu, _, cu = TM.decode_step(params, nxt, cu, pos, ucfg)
+                with SH.parallel_scope(mesh, specs, context_parallel=True):
+                    ls, _, cs = TM.decode_step(local, nxt, cs, pos, ucfg)
+                pos += 1
+        res["cp_logits_gap"] = max(gaps)
+        res["cp_finite"] = finite
+        res["cp_scale"] = float(lu.float().abs().max())
+        out["cp"].append(res)
+
+    for case in train_cases:
+        from repro_torch.launch import steps as TS
+        from repro_torch.optim import OptConfig
+        import repro_torch.configs as TCF
+        cfg = TCF.get(case["arch"])
+        state = TM.train_state_from_numpy(case["state"], device=device)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in case["batch"].items()}
+        pspecs = SH.param_shardings(state["params"], mesh, cfg)
+        sspecs = SH.param_shardings(state, mesh, cfg)
+        local = SH.shard_tree(state, sspecs, mesh)
+        step = TS.make_train_step(cfg, OptConfig(lr=case["lr"]),
+                                  microbatches=case["microbatches"],
+                                  warmup=0, mesh_axes=("data", "model"))
+        with SH.parallel_scope(mesh, pspecs):
+            new, m = step(local, batch)
+        full = SH.unshard_tree(new["params"], pspecs, mesh)
+        flat = SH.flat_specs(pspecs)
+        out["train"].append({
+            "loss": float(m["loss"]),
+            "report": [int(x) for x in m["report"]],
+            "params": {p: _np(t) for p, t in tree_flatten_with_path(full)},
+            "replicated_digest": {
+                p: hashlib.sha256(_np(t).tobytes()).hexdigest()
+                for p, t in tree_flatten_with_path(new["params"])
+                if not SH.is_sharded(flat[p])}})
+    return out
+
+
+def cp_cache_rank(rank: int, data: int, model: int):
+    """Context-parallel caches executed on a gloo mesh of CPU ranks: the
+    local shapes init_caches gives a session's slots (3 and 1 rows) and a
+    batch-1 prefill in a context-parallel scope, shard_tree / unshard_tree
+    round trips of full caches under cache_shardings' specs, and the
+    refusals: a param tree sharded over 'data' (fsdp=True), a cache tree
+    taken as params, context-parallel rows that divide the data axes."""
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.runtime import sharding as SH
+    import repro_torch.configs as TCF
+    from repro_torch.models import transformer as TM
+    mesh = _mesh(data, model, "gloo", "cpu")
+    out = {"shapes": {}, "round_trip": {}, "local_shapes": {},
+           "refused": {}}
+    for arch in ("yi-9b-smoke", "recurrentgemma-2b-smoke",
+                 "mamba2-1.3b-smoke"):
+        cfg = TCF.get(arch)
+        params = TM.init_params(cfg, device="cpu")
+        specs = SH.param_shardings(params, mesh, cfg)
+        for rows in (3, 1):
+            with SH.parallel_scope(mesh, specs, context_parallel=True):
+                c = TM.init_caches(cfg, rows, MAX_LEN, "cpu",
+                                   shard_batch=True)
+            out["shapes"][f"{arch}/{rows}"] = {
+                p: list(t.shape) for p, t in tree_flatten_with_path(c)}
+        full = TM.init_caches(cfg, 1, MAX_LEN, "cpu")
+        g = torch.Generator().manual_seed(0)     # the same on every rank
+        full = {sec: {blk: {k: torch.randn(t.shape, generator=g).to(t.dtype)
+                            for k, t in leaves.items()}
+                      for blk, leaves in blocks.items()}
+                for sec, blocks in full.items()}
+        cspecs = SH.cache_shardings(full, mesh, 1)
+        local = SH.shard_tree(full, cspecs, mesh, cache=True)
+        back = SH.unshard_tree(local, cspecs, mesh, cache=True)
+        out["round_trip"][arch] = all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                tree_flatten_with_path(full), tree_flatten_with_path(back)))
+        out["local_shapes"][arch] = {p: list(t.shape) for p, t in
+                                     tree_flatten_with_path(local)}
+        for what, fn in (
+                ("fsdp_params", lambda: SH.shard_tree(
+                    params, SH.param_shardings(params, mesh, cfg,
+                                               fsdp=True), mesh)),
+                ("cache_as_params", lambda: SH.shard_tree(full, cspecs,
+                                                          mesh)),
+                ("dividing_rows", lambda: _cp_caches(cfg, specs, mesh,
+                                                     data))):
+            try:
+                fn()
+                out["refused"][f"{arch}/{what}"] = None
+            except (NotImplementedError, ValueError) as e:
+                out["refused"][f"{arch}/{what}"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def _cp_caches(cfg, specs, mesh, rows):
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.models import transformer as TM
+    with SH.parallel_scope(mesh, specs, context_parallel=True):
+        return TM.init_caches(cfg, rows, MAX_LEN, "cpu", shard_batch=True)

@@ -32,7 +32,8 @@ PHASES = (("3", "check_checksum_reduce"), ("3", "check_abft_matmul"),
           ("3b", "check_serving_kernels"), ("3c", "check_mamba_kernels"),
           ("3d", "check_rg_kernels"), ("3e", "check_musicgen_kernels"),
           ("3f", "check_moe_kernels"), ("3g", "check_kimi_kernels"),
-          ("3h", "check_yi_shard_kernels"), ("17", "run_mesh_phase"),
+          ("3h", "check_yi_shard_kernels"),
+          ("3i", "check_rec_shard_kernels"), ("17-18", "run_mesh_phase"),
           ("4-5b", "run_slice"),
           ("8-start", "start_campaign"), ("6-7b", "run_serving"),
           ("8", "run_campaign_phase"),
